@@ -1,0 +1,152 @@
+"""Block-size sweep of the one-thread-per-row kernels on one GPU.
+
+    python3 -m plutus_halo2_tpu_torch.block_sweep [--batch 1024] [--reps 5]
+
+Times the transcript, Fr pow, Fp pow and pairing kernels at the verifier's
+shapes (B rows; the Fp pow at B x 10 elements) with CUDA events, at the
+default block size (``ops._build.BLOCK_THREADS``) and at fixed sizes from 1
+to 128 threads, checks that every size gives the default's output, and
+prints one JSON line per kernel with the median ms per size. Then it
+times ``TorchVerifier.verify()`` on a B-proof batch of the committed
+simple_mul proof at the default block size and at one thread per block,
+alternated (1, default, default, 1, ...) in one process so that the
+host's drift falls on both, and prints the median batch ms and stage ms
+of each; last, the card's ``nvidia-smi`` name and power limit. Needs a
+CUDA device."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_pairing
+from .ops import curve as tc
+from .ops import pairing as tp
+from .ops.limb import FP_SPEC, FR_SPEC
+from .refimpl import curve as rc
+
+SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
+# the squeeze lengths of simple_mul's transcript (models/layout.py)
+SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)
+
+
+def _canon(spec, shape, rng, dev):
+    n = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N for _ in range(n)]
+    return torch.from_numpy(np.stack([spec.encode(v) for v in vals]).reshape(*shape, spec.L)).to(dev)
+
+
+def _median_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def _verify_ab(B: int, rounds: int):
+    """Median verify() wall ms and stage ms at one thread per block and at
+    the default, alternated ABBA."""
+    from .models.circuits import SimpleMulCircuit
+    from .models.verifier_torch import TorchVerifier
+    from .refimpl.keygen import plan_from_vk
+    from .utils.serialization import parse_public_inputs, vk_from_json
+
+    art = Path(__file__).resolve().parents[1] / "examples" / "artifacts"
+    plan = plan_from_vk(SimpleMulCircuit(), vk_from_json((art / "simple_mul_vk.json").read_text()))
+    proof = np.frombuffer(bytes.fromhex((art / "simple_mul_proof.hex").read_text().strip()), np.uint8)
+    pis = parse_public_inputs((art / "simple_mul_public_input.hex").read_text())
+    v = TorchVerifier(plan, subgroup_check="off")
+    proofs = torch.from_numpy(np.stack([proof] * B).copy()).cuda()
+    pis_t = torch.from_numpy(v.encode_public_inputs([pis] * B)).cuda()
+    default = _build.BLOCK_THREADS
+    v.verify(proofs, pis_t)  # warm-up
+    runs = {1: [], default: []}
+    for t in [1, default, default, 1] * rounds:
+        _build.BLOCK_THREADS = t
+        v.timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = v.verify(proofs, pis_t)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        if not bool(ok.all()):
+            raise SystemExit("block_sweep: verify() rejected an honest proof")
+        stages = {k: sum(s.elapsed_time(e) for s, e in evs) for k, evs in v.timings.items()}
+        runs[t].append((wall, stages))
+    _build.BLOCK_THREADS = default
+    for t, rs in runs.items():
+        print(json.dumps({"verify_threads_per_block": t, "batch": B, "calls": len(rs),
+                          "wall_ms": statistics.median(w for w, _ in rs),
+                          "stage_ms": {k: statistics.median(st[k] for _, st in rs) for k in rs[0][1]}}))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--verify-rounds", type=int, default=3, help="ABBA rounds of the verify() A/B")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("block_sweep: needs a CUDA device")
+    dev, B = torch.device("cuda"), args.batch
+    rng = np.random.default_rng(args.seed)
+
+    buf = torch.from_numpy(rng.integers(0, 256, size=(B, max(SIMPLE_MUL_LENGTHS) + 49),
+                                        dtype=np.uint8)).to(dev)
+    x_fr = _canon(FR_SPEC, (B, 1), rng, dev)
+    x_fp = _canon(FP_SPEC, (B, 10), rng, dev)
+    # random G1 points [a]G and [b]G per row
+    gen = torch.from_numpy(tc.host_point_to_mont(rc.G1_GEN)).to(dev)
+    sides = cuda_curve.msm(gen.expand(2 * B, 1, 3, FP_SPEC.L).contiguous(),
+                           _canon(FR_SPEC, (2 * B, 1), rng, dev))
+    el, er = sides[:B].contiguous(), sides[B:].contiguous()
+    pp = cuda_pairing.PreparedPair(tp.prepare_g2(rc.g2_mul(rc.G2_GEN, 0xC0FFEE)),
+                                   tp.prepare_g2(rc.G2_GEN))
+    cases = (
+        ("transcript", B, lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)),
+        ("pow_fr", B, lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2)),
+        ("pow_fp", 10 * B, lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2)),
+        ("pairing", B, lambda: cuda_pairing.pairing_check(el, er, pp)),
+    )
+    default = _build.BLOCK_THREADS
+    for name, n, fn in cases:
+        _build.BLOCK_THREADS = default
+        want = fn()
+        default_ms = _median_ms(fn, args.reps)
+        ms = {}
+        for t in SIZES:
+            _build.BLOCK_THREADS = t
+            if not _same(fn(), want):
+                raise SystemExit(f"block_sweep: {name} at {t} threads per block differs")
+            ms[t] = _median_ms(fn, args.reps)
+        print(json.dumps({"kernel": name, "items": n, "default_threads": default,
+                          "default_ms": default_ms, "ms_by_threads": ms}))
+    _build.BLOCK_THREADS = default
+    _verify_ab(B, args.verify_rounds)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,597 @@
+"""Plan-specialized batched Halo2 verifier in PyTorch: the port of
+``plutus_halo2_tpu/models/verifier_jax.py::JaxVerifier``.
+
+Pipeline per batch (each proof a row):
+  proof bytes -> transcript buffer (gather) -> all Fiat-Shamir challenges
+  (transcript kernel) -> point decompression (the Fp pow kernel as the sqrt
+  ladder) -> scalar work over Fr (one pooled batch inversion rooted in the
+  Fr pow kernel, Lagrange basis, vanishing fold) -> the Halo2-book
+  multi-open MSM (MSM kernel) -> the pairing check (pairing kernel).
+
+On a CUDA device the four stages named above run as the hand-written
+kernels of ``csrc/``; the O(1)-per-proof glue between them is batched torch
+code (``ops/limb.py``). On the CPU every stage runs its plain version.
+
+This slice implements exact ``verify()`` without y-hints, with
+``subgroup_check="off"``, for the Halo2-book KZG flavor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import cuda_blake, cuda_curve, cuda_field, cuda_pairing
+from ..ops import curve as tc
+from ..ops.limb import FP_SPEC, FR_SPEC, fr
+from ..ops.pairing import prepare_g2
+from ..refimpl.curve import G1_GEN, G2_GEN, g1_neg
+from ..refimpl.field import FR_DELTA, Q
+from .layout import build_layout
+from .plan import FLAVOR_HALO2, CircuitPlan, eval_expr, rot_offset
+
+_R256 = pow(2, 256, Q)
+
+# host constants, as JaxVerifier holds them (see from_jax_state)
+STATE_KEYS = (
+    "fixed_coms", "perm_coms", "prep_sg2", "prep_g2", "rot_mult",
+    "van_rotations", "inst_rotations", "bary_mont", "r256_mont", "one_fr",
+)
+
+# commitment reference tag -> static MSM point key ('#' = VK constant)
+_COM_KEYS = {
+    "advice_com": "advice_{}",
+    "fixed_com": "#fixed_{}",
+    "perm_z_com": "perm_z_{}",
+    "perm_common_com": "#perm_{}",
+    "vanishing_rand": "vanishing_rand",
+    "lookup_z_com": "lookup_z_{}",
+    "lookup_perm_input_com": "lookup_perm_input_{}",
+    "lookup_perm_table_com": "lookup_perm_table_{}",
+}
+
+_NEXT_SLICE = "ROADMAP.md section A, next slice (hinted decompression + aggregate subgroup kernels)"
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points run on the card unless the caller asks for the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("TorchVerifier runs on a CUDA device and none is available; "
+                           "pass device='cpu' to run the plain versions on the CPU")
+    return device
+
+
+class _FrEnv:
+    """Scalar-expression environment over Montgomery Fr limb tensors."""
+
+    def __init__(self, device, vars_, advice_evals, fixed_evals, perm_common_evals,
+                 perm_z_evals, lookup_evals):
+        self.device = device
+        self.vars = vars_
+        self.advice_evals = advice_evals
+        self.fixed_evals = fixed_evals
+        self.perm_common_evals = perm_common_evals
+        self.perm_z_evals = perm_z_evals
+        self.lookup_evals = lookup_evals
+
+    def add(self, a, b):
+        return fr.add(a, b)
+
+    def mul(self, a, b):
+        return fr.mul(a, b)
+
+    def neg(self, a):
+        return fr.neg(a)
+
+    def pow(self, a, k):
+        # static small exponents in gate expressions: repeated squaring
+        if k == 0:
+            return fr.one(a.shape[:-1], self.device)
+        result, base = None, a
+        while k:
+            if k & 1:
+                result = base if result is None else fr.mul(result, base)
+            k >>= 1
+            if k:
+                base = fr.sqr(base)
+        return result
+
+    def const(self, v):
+        return fr.const(v, self.device)
+
+    def var(self, name):
+        return self.vars[name]
+
+    def advice(self, qi):
+        return self.advice_evals[qi]
+
+    def fixed(self, qi):
+        return self.fixed_evals[qi]
+
+    def instance(self, qi):
+        raise NotImplementedError("instance queries in gates are not supported")
+
+    def instance_col(self, col):
+        return self.vars["instance_eval"]
+
+    def perm_common(self, i):
+        return self.perm_common_evals[i]
+
+    def perm_z(self, s, which):
+        return self.perm_z_evals[s][which]
+
+    def lookup(self, i, which):
+        return self.lookup_evals[i][which]
+
+    def identity(self):
+        return self.vars["x"]
+
+    def l0(self):
+        return self.vars["evaluation_at_0"]
+
+    def l_last(self):
+        return self.vars["last_evaluation"]
+
+    def l_active(self):
+        return self.vars["active_rows"]
+
+
+def _precompute_delta_pows(expr):
+    """Host-side: fold ('pow', ('var','delta'), k) into constants."""
+    if not isinstance(expr, tuple):
+        return expr
+    if expr[0] == "pow" and expr[1] == ("var", "delta"):
+        return ("const", pow(FR_DELTA, expr[2], Q))
+    return tuple(_precompute_delta_pows(e) if isinstance(e, tuple) else e for e in expr)
+
+
+def host_state(plan: CircuitPlan) -> dict:
+    """The verifier's host constants computed from the plan's VK, as numpy
+    int64 limb arrays (the same values JaxVerifier.__init__ computes)."""
+    vk = plan.vk
+    n_pi = vk.num_public_inputs
+    L = FP_SPEC.L
+    st = {
+        "fixed_coms": np.stack([tc.host_point_to_mont(p) for p in vk.fixed_commitments])
+        if vk.fixed_commitments else np.zeros((0, 3, L), np.int64),
+        "perm_coms": np.stack([tc.host_point_to_mont(p) for p in vk.permutation_commitments])
+        if vk.permutation_commitments else np.zeros((0, 3, L), np.int64),
+        "prep_sg2": prepare_g2(vk.s_g2),
+        "prep_g2": prepare_g2(G2_GEN),
+    }
+    rot_mult = {}
+    for r in ["cur", "next", "prev", "last"]:
+        off = rot_offset(r, vk.blinding_factors)
+        base = vk.omega if off >= 0 else vk.omega_inv
+        rot_mult[off] = FR_SPEC.to_mont(pow(base, abs(off), Q))
+    st["rot_mult"] = rot_mult
+    bf = vk.blinding_factors
+    # vanishing-region rotations: -(bf+1) .. 0 (hbs:142-151)
+    st["van_rotations"] = np.stack(
+        [FR_SPEC.to_mont(pow(vk.omega_inv, k, Q)) for k in range(bf + 1, 0, -1)]
+        + [FR_SPEC.to_mont(1)]
+    )
+    st["inst_rotations"] = np.stack(
+        [FR_SPEC.to_mont(pow(vk.omega, i, Q)) for i in range(max(n_pi, 1))]
+    )
+    st["bary_mont"] = FR_SPEC.to_mont(vk.barycentric_weight)
+    st["r256_mont"] = FR_SPEC.to_mont(_R256)
+    st["one_fr"] = FR_SPEC.to_mont(1)
+    return st
+
+
+class TorchVerifier:
+    """verify(proof_bytes (B, PLEN) uint8, public_inputs (B, n_pi, 17)
+    canonical Fr limbs) -> (B,) bool. Build once per plan.
+
+    device: None resolves to "cuda" (raises without a GPU); "cpu" runs the
+    plain versions of every kernel. subgroup_check takes JaxVerifier's modes
+    and default; only "off" exists in this slice."""
+
+    def __init__(self, plan: CircuitPlan, device=None,
+                 subgroup_check: bool | str = "aggregate", _state: dict | None = None):
+        self.device = resolve_device(device)
+        if subgroup_check is True:
+            subgroup_check = "exact"
+        if subgroup_check is False:
+            subgroup_check = "off"
+        if subgroup_check not in ("aggregate", "exact", "off"):
+            raise ValueError(f"unknown subgroup_check {subgroup_check!r}")
+        if subgroup_check != "off":
+            raise NotImplementedError(
+                f"subgroup_check={subgroup_check!r} is not ported yet ({_NEXT_SLICE}); "
+                "use subgroup_check='off'")
+        if plan.flavor != FLAVOR_HALO2:
+            raise NotImplementedError(
+                "only the halo2-book KZG flavor is ported (ROADMAP.md section A: GWC flavor)")
+        self.subgroup_check = subgroup_check
+        self.plan = plan
+        self.layout = build_layout(plan)
+        self.n_pi = plan.vk.num_public_inputs
+        st = host_state(plan) if _state is None else _state
+        self.state = st
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a).astype(np.int64), device=dev)
+
+        self.fixed_coms = t(st["fixed_coms"])
+        self.perm_coms = t(st["perm_coms"])
+        self.rot_mult = {int(k): t(v) for k, v in st["rot_mult"].items()}
+        self.van_rotations = t(st["van_rotations"])
+        self.inst_rotations = t(st["inst_rotations"])
+        self.bary_mont = t(st["bary_mont"])
+        self.r256_mont = t(st["r256_mont"])
+        self.one_fr = t(st["one_fr"])
+        self.pair = cuda_pairing.PreparedPair(st["prep_sg2"], st["prep_g2"])
+        self.neg_g1 = t(tc.host_point_to_mont(g1_neg(G1_GEN)))
+        self.exprs = [_precompute_delta_pows(e) for e in plan.vanishing_expressions()]
+
+        lay = self.layout
+        src = np.zeros(lay.total_len, np.int64)
+        from_proof = np.zeros(lay.total_len, bool)
+        for k, pos in enumerate(lay.proof_scatter):
+            src[pos] = k
+            from_proof[pos] = True
+        self._buf_src = t(src)
+        self._buf_from_proof = torch.as_tensor(from_proof, device=dev)
+        self._template = torch.as_tensor(lay.template, device=dev)
+        self._sq_lengths = [mlen for _name, mlen in lay.squeezes]
+        self._sc_idx = t(np.stack([np.arange(32) + off for off in lay.scalar_offsets.values()])) \
+            if lay.scalar_offsets else None
+        self._pt_idx = t(np.stack([np.arange(48) + off for off in lay.point_offsets.values()]))
+        self.msm_term_counts: list[int] = []
+        self.timings: dict | None = None  # set to {} to record per-stage CUDA events
+
+    @classmethod
+    def from_jax_state(cls, plan: CircuitPlan, state: dict, device=None,
+                       subgroup_check: str = "off") -> "TorchVerifier":
+        """A verifier that computes with exactly the given host constants
+        (the JAX verifier's attributes named in STATE_KEYS, as numpy arrays
+        or dicts of them) instead of deriving its own."""
+        missing = [k for k in STATE_KEYS if k not in state]
+        if missing:
+            raise ValueError(f"state lacks {missing}")
+        st = {k: state[k] for k in STATE_KEYS}
+        st["prep_sg2"] = {k: np.asarray(v).astype(np.int64) for k, v in st["prep_sg2"].items()}
+        st["prep_g2"] = {k: np.asarray(v).astype(np.int64) for k, v in st["prep_g2"].items()}
+        return cls(plan, device=device, subgroup_check=subgroup_check, _state=st)
+
+    # ------------------------------------------------------------------
+    def encode_public_inputs(self, pis) -> np.ndarray:
+        """Host: (B, n_pi) ints -> (B, n_pi, L) canonical Fr limbs."""
+        if not len(pis):
+            return np.zeros((0, self.n_pi, FR_SPEC.L), np.int64)
+        return np.stack([np.stack([FR_SPEC.encode(v % Q) for v in row]) for row in pis])
+
+    def verify(self, proof_bytes, public_inputs, y_hints=None):
+        """proof_bytes (B, PLEN) uint8, public_inputs (B, n_pi, 17) canonical
+        Fr limbs (numpy or tensors) -> (B,) bool tensor on the device."""
+        if y_hints is not None:
+            raise NotImplementedError(f"y-hinted decompression is not ported yet ({_NEXT_SLICE})")
+        el, er, all_valid = self.core(proof_bytes, public_inputs)
+        ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el, er, self.pair))
+        return ok & all_valid
+
+    # ------------------------------------------------------------------
+    def _stage(self, name, fn):
+        """Run one stage; with `timings` set, bracket it in CUDA events."""
+        if self.timings is None or self.device.type != "cuda":
+            return fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        self.timings.setdefault(name, []).append((start, end))
+        return out
+
+    def _fr_from_le_bytes(self, raw):
+        """(..., 32) uint8 -> value mod q in Montgomery form."""
+        b = raw.to(torch.int64).reshape(*raw.shape[:-1], 16, 2)
+        limbs = torch.nn.functional.pad(b[..., 0] | (b[..., 1] << 8), (0, 1))
+        return fr.to_mont(limbs)  # tolerates values up to 2^256
+
+    def _fr_from_words(self, w):
+        """(..., 8) LE64 digest words -> Fr Montgomery."""
+        l16 = torch.stack([w & 0xFFFF, w >> 16], -1).reshape(*w.shape[:-1], 16)
+        return fr.to_mont(torch.nn.functional.pad(l16, (0, 1)))
+
+    def _pi_bytes(self, pi_limbs):
+        """(..., L) canonical Fr limbs -> (..., 32) LE bytes."""
+        l16 = pi_limbs[..., :16]
+        return torch.stack([l16 & 0xFF, (l16 >> 8) & 0xFF], -1).reshape(
+            *pi_limbs.shape[:-1], 32).to(torch.uint8)
+
+    def transcript_buffer(self, proof, pis):
+        """(B, TOTAL) uint8 transcript bytes, in gather form: every byte comes
+        from the static template, a static proof offset or a public input."""
+        buf = torch.where(self._buf_from_proof, proof[:, self._buf_src], self._template)
+        for i, pos in enumerate(self.layout.pi_positions):
+            buf[:, pos : pos + 32] = self._pi_bytes(pis[:, i, :])
+        return buf.contiguous()
+
+    def core(self, proof, pis):
+        """proof bytes -> (el, er, all_valid): the pairing sides and the
+        per-row decompression validity."""
+        plan, lay, vk = self.plan, self.layout, self.plan.vk
+        dev = self.device
+        proof = torch.as_tensor(proof, device=dev)
+        pis = torch.as_tensor(pis, device=dev).to(torch.int64)
+        B = proof.shape[0]
+        if proof.dtype != torch.uint8 or proof.dim() != 2 or proof.shape[1] != lay.proof_len:
+            raise ValueError(f"proofs must be (B, {lay.proof_len}) uint8, got "
+                             f"{tuple(proof.shape)} {proof.dtype}")
+        if pis.shape != (B, self.n_pi, FR_SPEC.L):
+            raise ValueError(f"public inputs must be (B, {self.n_pi}, {FR_SPEC.L})")
+
+        # ---- transcript buffer + all challenges --------------------------
+        def transcript():
+            buf = self.transcript_buffer(proof, pis)
+            h1w, h2w = cuda_blake.transcript_hashes(buf, self._sq_lengths)
+            m = self._fr_from_words(torch.stack([h1w, h2w]))
+            vals = fr.add(m[0], fr.mul(m[1], self.r256_mont))
+            return {name: vals[:, s] for s, (name, _l) in enumerate(lay.squeezes)}
+
+        ch = self._stage("transcript", transcript)
+
+        # ---- parse proof fields ------------------------------------------
+        scalars = {}
+        if self._sc_idx is not None:
+            sc_vals = self._fr_from_le_bytes(proof[:, self._sc_idx])
+            scalars = {n: sc_vals[:, i, :] for i, n in enumerate(lay.scalar_offsets)}
+
+        point_names = list(lay.point_offsets)
+
+        def decompress():
+            sqrt_fn = lambda rhs: cuda_field.fp_pow(rhs.contiguous(), (FP_SPEC.N + 1) >> 2)  # noqa: E731
+            return tc.decompress(proof[:, self._pt_idx], sqrt_fn=sqrt_fn)
+
+        pts, pt_valid = self._stage("decompress", decompress)
+        points = {n: pts[:, i] for i, n in enumerate(point_names)}
+        all_valid = pt_valid.all(-1)
+
+        set_points, mo_invs, vanishing_s, xn = self._stage(
+            "fr_side", lambda: self._scalar_side(B, ch, scalars, pis))
+
+        def eval_value(ref):
+            tag = ref[0]
+            if tag == "advice_eval":
+                return scalars[f"advice_eval_{ref[1]}"]
+            if tag == "fixed_eval":
+                return scalars[f"fixed_eval_{ref[1]}"]
+            if tag == "perm_z":
+                return scalars[f"perm_z_{ref[1]}_{ref[2]}"]
+            if tag == "perm_common":
+                return scalars[f"perm_common_{ref[1]}"]
+            if tag == "vanishing_s":
+                return vanishing_s
+            if tag == "random_eval":
+                return scalars["random_eval"]
+            if tag == "lookup":
+                return scalars[f"lookup_{ref[1]}_{ref[2]}"]
+            raise ValueError(ref)
+
+        def com_terms(ref, coeff):
+            """Yield (point_key, coeff) MSM terms; vanishing_g expands into
+            the xn^i-scaled quotient splits (extraction/mod.rs:637-686)."""
+            tag = ref[0]
+            if tag == "vanishing_g":
+                c = coeff
+                for i in range(plan.num_vanishing_splits):
+                    yield (f"split_{i}", c)
+                    if i != plan.num_vanishing_splits - 1:
+                        c = fr.mul(c, xn)
+                return
+            if tag not in _COM_KEYS:
+                raise ValueError(ref)
+            yield (_COM_KEYS[tag].format(*ref[1:]), coeff)
+
+        def resolve_point(key):
+            """Static key -> (B, 3, L) points ('#'-prefixed = VK constant)."""
+            if key == "#neg_g1":
+                return self.neg_g1.expand(B, 3, FP_SPEC.L)
+            if key.startswith("#fixed_"):
+                return self.fixed_coms[int(key[7:])].expand(B, 3, FP_SPEC.L)
+            if key.startswith("#perm_"):
+                return self.perm_coms[int(key[6:])].expand(B, 3, FP_SPEC.L)
+            return points[key]
+
+        def run_msm(terms):
+            # merge duplicate points by summing their scalars, insertion-
+            # ordered (the reference's flatten_msm / optimize_msm,
+            # code_emitters_aiken.rs:913-1016)
+            order, acc = [], {}
+            for key, c in terms:
+                if key in acc:
+                    acc[key] = fr.add(acc[key], c)
+                else:
+                    acc[key] = c
+                    order.append(key)
+            self.msm_term_counts.append(len(order))
+            pts_arr = torch.stack([resolve_point(k) for k in order], -3).contiguous()
+            coeffs = fr.from_mont(torch.stack([acc[k] for k in order], -2)).contiguous()
+            return self._stage("msm", lambda: cuda_curve.msm(pts_arr, coeffs))
+
+        self.msm_term_counts = []
+        el, er_msm = self._multiopen_halo2(plan, ch, scalars, eval_value, com_terms,
+                                           run_msm, points, set_points, mo_invs)
+        er = tc.neg(er_msm)
+        return el.contiguous(), er.contiguous(), all_valid
+
+
+    def _scalar_side(self, B, ch, scalars, pis):
+        """The Fr side: one pooled batch inversion, the Lagrange basis and
+        the vanishing fold. Returns (set_points, mo_invs, vanishing_s, xn)."""
+        plan, vk, dev = self.plan, self.plan.vk, self.device
+        x = ch["x"]
+        xn = fr.pow(x, vk.n)
+        one = self.one_fr.expand(B, FR_SPEC.L)
+
+        def rot_point(rot):
+            off = rot_offset(rot, vk.blinding_factors)
+            return x if off == 0 else fr.mul(x, self.rot_mult[off])
+
+        # Every Fr inverse the verifier needs (Lagrange-basis denominators,
+        # 1/(x^n - 1), multi-open interpolation denominators) depends only on
+        # challenges and plan constants, so all of them merge into one
+        # Montgomery-trick batch inversion with ONE Fermat ladder (the Fr pow
+        # kernel) at the root.
+        inv_blocks = []
+
+        def _pool(block):
+            start = sum(blk.shape[-2] for blk in inv_blocks)
+            inv_blocks.append(block)
+            return (start, start + block.shape[-2])
+
+        if self.n_pi:
+            inst_rots = self.inst_rotations[: self.n_pi]
+            sl_inst = _pool(fr.sub(x[:, None, :], inst_rots[None]))
+        sl_van = _pool(fr.sub(x[:, None, :], self.van_rotations[None]))
+        sl_xn1 = _pool(fr.sub(xn, one)[:, None, :])
+
+        x3_ch = ch["x3"]
+        set_points = [[rot_point(r) for r in rots] for rots in plan.point_sets]
+        mo_slices = []
+        for pts_s in set_points:
+            dens = []
+            for j in range(len(pts_s)):
+                den = None
+                for m in range(len(pts_s)):
+                    if m != j:
+                        dm = fr.sub(pts_s[j], pts_s[m])
+                        den = dm if den is None else fr.mul(den, dm)
+                dens.append(den if den is not None else fr.one((B,), dev))
+            z_den = None
+            for p in pts_s:
+                t = fr.sub(x3_ch, p)
+                z_den = t if z_den is None else fr.mul(z_den, t)
+            mo_slices.append(_pool(torch.stack(dens + [z_den], -2)))
+
+        def root_inv(t):
+            return cuda_field.fr_pow(t[:, None, :].contiguous(), Q - 2)[:, 0, :]
+
+        pooled = fr.batch_inv(torch.cat(inv_blocks, -2), dim=-2, inv_fn=root_inv)
+        mo_invs = [pooled[:, a:b, :] for (a, b) in mo_slices]
+        common = fr.mul(fr.sub(xn, one), self.bary_mont)
+
+        def lagrange_basis(rots, sl):
+            # l_i(x) = rot_i * (x^n - 1) * bary / (x - rot_i)
+            return fr.mul(fr.mul(pooled[:, sl[0] : sl[1], :], common[:, None, :]), rots[None])
+
+        if self.n_pi:
+            instance_eval = fr.dot_lazy(lagrange_basis(inst_rots, sl_inst), fr.to_mont(pis), dim=-2)
+        else:
+            instance_eval = fr.zeros((B,), dev)
+
+        basis_van = lagrange_basis(self.van_rotations, sl_van)
+        bf = vk.blinding_factors
+        last_evaluation = basis_van[:, 0, :]
+        sum_blind = fr.sum_lazy(basis_van[:, 1 : 1 + bf, :], dim=-2)
+        evaluation_at_0 = basis_van[:, 1 + bf, :]
+        active_rows = fr.sub(one, fr.add(last_evaluation, sum_blind))
+
+        n_sets = plan.num_permutation_sets
+        perm_z_evals = [
+            {w: scalars[f"perm_z_{s}_{w}"]
+             for w in (["cur", "next", "last"] if s != n_sets - 1 else ["cur", "next"])}
+            for s in range(n_sets)
+        ]
+        lookup_evals = [
+            {w: scalars[f"lookup_{i}_{w}"] for w in ["z_cur", "z_next", "a_cur", "a_prev", "s_cur"]}
+            for i in range(len(plan.lookups))
+        ]
+        env = _FrEnv(
+            dev,
+            vars_={
+                "theta": ch.get("theta"),
+                "beta": ch.get("beta"),
+                "gamma": ch.get("gamma"),
+                "x": x,
+                "instance_eval": instance_eval,
+                "evaluation_at_0": evaluation_at_0,
+                "last_evaluation": last_evaluation,
+                "active_rows": active_rows,
+            },
+            advice_evals=[scalars[f"advice_eval_{i}"] for i in range(len(plan.advice_queries))],
+            fixed_evals=[scalars[f"fixed_eval_{i}"] for i in range(len(plan.fixed_queries))],
+            perm_common_evals=[scalars[f"perm_common_{i}"] for i in range(len(plan.permutation_columns))],
+            perm_z_evals=perm_z_evals,
+            lookup_evals=lookup_evals,
+        )
+        h_eval = fr.zeros((B,), dev)
+        y = ch["y"]
+        for expr in self.exprs:
+            h_eval = fr.add(fr.mul(h_eval, y), eval_expr(expr, env))
+        vanishing_s = fr.mul(h_eval, pooled[:, sl_xn1[0], :])
+        return set_points, mo_invs, vanishing_s, xn
+
+    def _multiopen_halo2(self, plan, ch, scalars, eval_value, com_terms, run_msm, points,
+                         set_points, mo_invs):
+        """Halo2-book accumulation (Halo2MultiOpenMSM.hs:59-97) assembled as
+        one MSM; q-set evals and f_eval are computed on the scalar side.
+        `set_points` are the per-set rotated evaluation points and
+        `mo_invs[s]` the pooled inverses of [interpolation denominators...,
+        prod(x3 - pt)] for set s."""
+        x1, x2, x3, x4 = ch["x1"], ch["x2"], ch["x3"], ch["x4"]
+        B = x1.shape[0]
+        dev = x1.device
+        n_sets = len(plan.point_sets)
+
+        x1_powers = [fr.one((B,), dev)]
+        for _ in range(plan.x1_powers_count - 1):
+            x1_powers.append(fr.mul(x1_powers[-1], x1))
+        x4_powers = [fr.one((B,), dev)]
+        for _ in range(plan.x4_powers_count - 1):
+            x4_powers.append(fr.mul(x4_powers[-1], x4))
+
+        # q-set eval vectors (x1-weighted sums of claimed evals per point)
+        members_by_set = [[cd for cd in plan.commitment_data if cd[1] == s] for s in range(n_sets)]
+        q_eval_sets = []
+        for s, members in enumerate(members_by_set):
+            evs = []
+            for p_idx in range(len(plan.point_sets[s])):
+                terms = torch.stack(
+                    [fr.mul(x1_powers[j], eval_value(cd[3][p_idx])) for j, cd in enumerate(members)],
+                    -2)
+                evs.append(fr.sum_lazy(terms, dim=-2))
+            q_eval_sets.append(evs)
+
+        # f_eval: Horner in x2 over reversed sets of
+        # (q_eval - r(x3)) / prod(x3 - pt); denominators arrive pre-inverted
+        per_set = []
+        for s in range(n_sets):
+            pts_s, evs, inv_stack = set_points[s], q_eval_sets[s], mo_invs[s]
+            r_eval = fr.zeros((B,), dev)  # r(x3): interpolation through (pts_s, evs)
+            for j in range(len(pts_s)):
+                num = None
+                for m in range(len(pts_s)):
+                    if m != j:
+                        nm = fr.sub(x3, pts_s[m])
+                        num = nm if num is None else fr.mul(num, nm)
+                if num is None:
+                    num = fr.one((B,), dev)
+                r_eval = fr.add(r_eval, fr.mul(evs[j], fr.mul(num, inv_stack[:, j, :])))
+            q_ev = scalars[f"q_eval_{s}"]
+            per_set.append(fr.mul(fr.sub(q_ev, r_eval), inv_stack[:, len(pts_s), :]))
+        f_eval = fr.zeros((B,), dev)
+        for term in reversed(per_set):
+            f_eval = fr.add(fr.mul(f_eval, x2), term)
+
+        # v = sum x4^i (q_evals ++ [f_eval])
+        v = fr.zeros((B,), dev)
+        for i in range(n_sets):
+            v = fr.add(v, fr.mul(x4_powers[i], scalars[f"q_eval_{i}"]))
+        v = fr.add(v, fr.mul(x4_powers[n_sets], f_eval))
+
+        # final MSM: sum_s x4^s sum_j x1^j com_{s,j} + x4^n f_comm
+        #            + v * (-G1) + x3 * pi
+        msm_terms = []
+        for s, members in enumerate(members_by_set):
+            for j, cd in enumerate(members):
+                msm_terms.extend(com_terms(cd[0], fr.mul(x4_powers[s], x1_powers[j])))
+        msm_terms.append(("f_commitment", x4_powers[n_sets]))
+        msm_terms.append(("#neg_g1", v))
+        msm_terms.append(("pi", x3))
+        return points["pi"], run_msm(msm_terms)

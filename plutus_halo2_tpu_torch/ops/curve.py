@@ -1,0 +1,224 @@
+"""Batched BLS12-381 G1 arithmetic in PyTorch: the port of
+``plutus_halo2_tpu/ops/curve.py``.
+
+Points are homogeneous projective (X:Y:Z) over Montgomery-form Fp limbs,
+shape (..., 3, L). All formulas are the complete a=0 formulas of
+Renes-Costello-Batina 2015 (Algorithms 7 and 9): branch-free and
+identity-safe. The independent field multiplies of each formula run as one
+stacked call, so a point add costs four batched Montgomery products.
+
+``msm`` is the plain version of the MSM kernel (``csrc/msm.cu``): per-point
+4-bit windows over a 16-entry table, then one halving tree over K.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import limb
+from .limb import FP_SPEC, fp
+
+_B3 = FP_SPEC.to_mont(12)  # 3*b, b = 4
+_B = FP_SPEC.to_mont(4)
+
+
+def _c(arr, device):
+    return torch.as_tensor(arr, device=device)
+
+
+def pt(x, y, z):
+    return torch.stack([x, y, z], -2)
+
+
+def identity(shape, device):
+    """(0 : 1 : 0)."""
+    return pt(fp.zeros(shape, device), fp.one(shape, device), fp.zeros(shape, device))
+
+
+def host_point_to_mont(p) -> np.ndarray:
+    """Host-side: affine int point (or None) -> (3, L) Montgomery projective."""
+    if p is None:
+        return np.stack([FP_SPEC.to_mont(0), FP_SPEC.to_mont(1), FP_SPEC.to_mont(0)])
+    x, y = p
+    return np.stack([FP_SPEC.to_mont(x), FP_SPEC.to_mont(y), FP_SPEC.to_mont(1)])
+
+
+def host_point_from_mont(arr) -> tuple | None:
+    """Host-side: (3, L) Montgomery projective -> affine int point / None."""
+    arr = np.asarray(arr)
+    x = FP_SPEC.from_mont_int(arr[0])
+    y = FP_SPEC.from_mont_int(arr[1])
+    z = FP_SPEC.from_mont_int(arr[2])
+    if z == 0:
+        return None
+    zi = pow(z, FP_SPEC.N - 2, FP_SPEC.N)
+    return (x * zi % FP_SPEC.N, y * zi % FP_SPEC.N)
+
+
+def add(p, q):
+    """Complete addition, RCB15 Algorithm 7 (a=0)."""
+    p, q = torch.broadcast_tensors(p, q)
+    X1, Y1, Z1 = p.unbind(-2)
+    X2, Y2, Z2 = q.unbind(-2)
+    b3 = _c(_B3, p.device)
+    t0, t1, t2 = fp.mul(p, q).unbind(-2)
+    s = fp.add(torch.stack([X1, X2, Y1, Y2, X1, X2], -2),
+               torch.stack([Y1, Y2, Z1, Z2, Z1, Z2], -2))
+    m = fp.mul(s[..., 0::2, :], s[..., 1::2, :])
+    u = fp.add(torch.stack([t0, t1, t0], -2), torch.stack([t1, t2, t2], -2))
+    t3, t4, y3 = fp.sub(m, u).unbind(-2)
+    t0 = fp.add(fp.add(t0, t0), t0)
+    t2, y3 = fp.mul(torch.stack([t2, y3], -2), b3).unbind(-2)
+    z3 = fp.add(t1, t2)
+    t1 = fp.sub(t1, t2)
+    pr = fp.mul(torch.stack([t4, t3, y3, t1, t0, z3], -2),
+                torch.stack([y3, t1, t0, z3, t3, t4], -2))
+    x3 = fp.sub(pr[..., 1, :], pr[..., 0, :])
+    yz = fp.add(pr[..., 3:6:2, :], pr[..., 2:5:2, :])  # (t1 z3 + y3 t0, z3 t4 + t0 t3)
+    return torch.stack([x3, yz[..., 0, :], yz[..., 1, :]], -2)
+
+
+def double(p):
+    """Complete doubling, RCB15 Algorithm 9 (a=0)."""
+    X, Y, Z = p.unbind(-2)
+    b3 = _c(_B3, p.device)
+    t0, t1, t2, xy = fp.mul(torch.stack([Y, Y, Z, X], -2), torch.stack([Y, Z, Z, Y], -2)).unbind(-2)
+    t2 = fp.mul(t2, b3)
+    a1 = fp.add(torch.stack([t0, t2], -2), torch.stack([t0, t2], -2))  # 2 t0, 2 t2
+    a2 = fp.add(a1, torch.stack([a1[..., 0, :], t2], -2))  # 4 t0, 3 t2
+    a3 = fp.add(torch.stack([a2[..., 0, :], t0], -2), torch.stack([a2[..., 0, :], t2], -2))
+    z8, y3 = a3.unbind(-2)  # 8 t0, t0 + t2
+    t0 = fp.sub(t0, a2[..., 1, :])
+    pr = fp.mul(torch.stack([t2, t1, t0, t0], -2), torch.stack([z8, z8, y3, xy], -2))
+    out = fp.add(pr[..., 0:4:3, :], pr[..., 2:4, :])  # (t2 z8 + t0 y3, 2 t0 xy)
+    return torch.stack([out[..., 1, :], out[..., 0, :], pr[..., 1, :]], -2)
+
+
+def neg(p):
+    return pt(p[..., 0, :], fp.neg(p[..., 1, :]), p[..., 2, :])
+
+
+def select(cond, p, q):
+    """cond (...,) -> pointwise select."""
+    return torch.where(cond[..., None, None], p, q)
+
+
+def is_identity(p):
+    return fp.is_zero(p[..., 2, :])
+
+
+def _nibbles_msb_first(scalars):
+    """(..., L_fr) 16-bit limbs -> (64, ...) window values, MSB window first.
+    Canonical Fr fits 255 bits, so windows beyond 64 are always zero."""
+    sh = torch.arange(0, 16, 4, device=scalars.device)
+    nib = ((scalars.unsqueeze(-1) >> sh) & 0xF).reshape(*scalars.shape[:-1], -1)[..., :64]
+    return torch.movedim(nib.flip(-1), -1, 0)
+
+
+def _window_table(p):
+    """[0*P, 1*P, ..., 15*P] stacked on a new dim -3: (..., 16, 3, L)."""
+    tab = [identity(p.shape[:-2], p.device), p]
+    for _ in range(14):
+        tab.append(add(tab[-1], p))
+    return torch.stack(tab, -3)
+
+
+def mul(p, scalars):
+    """Batched scalar multiplication: p (..., 3, L) by canonical Fr limbs
+    (..., L_fr)."""
+    table = _window_table(p)
+    windows = _nibbles_msb_first(scalars)
+    acc = identity(p.shape[:-2], p.device)
+    for w in windows:
+        acc = double(double(double(double(acc))))
+        idx = w[..., None, None, None].expand(*w.shape, 1, 3, table.shape[-1])
+        acc = add(acc, table.gather(-3, idx).squeeze(-3))
+    return acc
+
+
+def tree_sum(points):
+    """Point sum over dim -3 by halving tree: log2(K) add layers."""
+    t = points
+    k = t.shape[-3]
+    while k > 1:
+        half = k // 2
+        paired = add(t[..., :half, :, :], t[..., half : 2 * half, :, :])
+        if k % 2:
+            paired = torch.cat([paired, t[..., 2 * half : k, :, :]], -3)
+            half += 1
+        t = paired
+        k = half
+    return t[..., 0, :, :]
+
+
+def msm(points, scalars):
+    """Batched multi-scalar multiplication over a static K dim:
+    points (..., K, 3, L), scalars (..., K, L_fr) canonical -> (..., 3, L)."""
+    return tree_sum(mul(points, scalars))
+
+
+def to_affine(p):
+    """(..., 3, L) projective -> (x, y, inf): Montgomery affine coordinates
+    (zero for the identity) and the identity flag."""
+    inf = is_identity(p)
+    zi = fp.inv(p[..., 2, :])
+    xy = fp.mul(p[..., 0:2, :], zi.unsqueeze(-2))
+    return xy[..., 0, :], xy[..., 1, :], inf
+
+
+# ---------------------------------------------------------------------------
+# compressed-point decoding (blst conventions, CompressUncompress.hs:51-97)
+# ---------------------------------------------------------------------------
+
+def _bytes_be_to_limbs(b):
+    """(..., 48) uint8 big-endian -> (..., 25) 16-bit limbs little-endian."""
+    le = b.flip(-1).to(torch.int64).reshape(*b.shape[:-1], 24, 2)
+    return torch.nn.functional.pad(le[..., 0] | (le[..., 1] << 8), (0, 1))
+
+
+def decompress(comp_bytes, sqrt_fn=None):
+    """Batched G1 decompression: (..., 48) uint8 -> (point (..., 3, L),
+    valid (...,) bool). Invalid encodings yield valid=False (the caller folds
+    this into the verdict; the on-chain builtin would abort the script).
+    sqrt_fn optionally overrides the x^((p+1)/4) ladder (the pow kernel)."""
+    flags = comp_bytes[..., 0].to(torch.int64)
+    comp_flag = (flags & 0x80) != 0
+    inf_flag = (flags & 0x40) != 0
+    sign_flag = (flags & 0x20) != 0
+
+    x_bytes = comp_bytes.clone()
+    x_bytes[..., 0] = (flags & 0x1F).to(torch.uint8)
+    x_limbs = _bytes_be_to_limbs(x_bytes)
+    dev = x_limbs.device
+    # x < p: x + (R - p) overflows R iff x >= p
+    z = limb.normalize(torch.nn.functional.pad(x_limbs, (0, 1)) + FP_SPEC.const("neg_n_ext", dev), 18)
+    x_ge_p = z[..., -1] > 0
+
+    xm = fp.to_mont(x_limbs)
+    rhs = fp.add(fp.mul(fp.mul(xm, xm), xm), _c(_B, dev))
+    y = sqrt_fn(rhs) if sqrt_fn is not None else fp.pow(rhs, (FP_SPEC.N + 1) >> 2)
+    root_ok = fp.eq(fp.mul(y, y), rhs)
+
+    # sign: y > -y in the integer sense — compare canonical (non-Montgomery)
+    y_neg = fp.neg(y)
+    y_int, ny_int = fp.from_mont(torch.stack([y, y_neg])).unbind(0)
+    # ny + (R - y) overflows R iff ny >= y
+    diff = limb.normalize(
+        torch.nn.functional.pad(y_int + (limb.MASK16 - ny_int), (0, 1))
+        + torch.nn.functional.pad(FP_SPEC.const("unit", dev), (0, 1)),
+        18,
+    )
+    y_gt = (diff[..., -1] > 0) & ~fp.eq(y_int, ny_int)
+
+    want_neg = sign_flag != y_gt
+    y_final = limb.select(want_neg, y_neg, y)
+
+    point = pt(xm, y_final, fp.one(xm.shape[:-1], dev))
+    ident = identity(point.shape[:-2], dev)
+    # infinity: flags 0xc0 with zero payload
+    rest_zero = (x_bytes[..., 1:] == 0).all(-1) & ((flags & 0x1F) == 0)
+    inf_ok = inf_flag & ~sign_flag & rest_zero
+    point = select(inf_flag, ident, point)
+    valid = comp_flag & torch.where(inf_flag, inf_ok, root_ok & ~x_ge_p)
+    return point, valid

@@ -1,0 +1,201 @@
+"""Kernel-vs-plain parity of the CUDA kernels at small, ragged shapes (any
+B, any K): each kernel's wrapper on CUDA tensors against its plain PyTorch
+version on the same inputs, exactly (the MSM in affine coordinates).
+
+These need a CUDA device and nvcc (sm_90a) and skip without them; run them
+on the GPU machine with ``python -m pytest tests/test_torch_kernels.py -m gpu
+--noconftest`` (``--noconftest`` where JAX is not installed: the suite's
+conftest configures JAX).
+``chip_smoke.py`` runs the same comparisons at the main path's shapes."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# the plain versions run many small ops, where intra-op threads only
+# contend with the other test workers
+torch.set_num_threads(1)
+
+from plutus_halo2_tpu_torch.ops import cuda_blake, cuda_curve, cuda_field, cuda_pairing  # noqa: E402
+from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
+from plutus_halo2_tpu_torch.ops import pairing as tp  # noqa: E402
+from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC  # noqa: E402
+from plutus_halo2_tpu_torch.refimpl import curve as rc  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _canon(spec, shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    vals = [int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N for _ in range(n)]
+    vals[0] = 0
+    return torch.from_numpy(np.stack([spec.encode(v) for v in vals]).reshape(*shape, spec.L)).to(dev)
+
+
+@pytest.mark.parametrize("spec", [FP_SPEC, FR_SPEC], ids=["fp", "fr"])
+def test_mont_mul_kernel(dev, spec):
+    a, b = _canon(spec, (37,), 1, dev), _canon(spec, (37,), 2, dev)
+    kern = cuda_field.fp_mont_mul if spec is FP_SPEC else cuda_field.fr_mont_mul
+    assert torch.equal(kern(a, b), cuda_field.mont_mul_plain(a, b, spec))
+
+
+@pytest.mark.parametrize("which", ["fr_inverse", "fp_sqrt"])
+def test_pow_kernel(dev, which):
+    if which == "fr_inverse":
+        x, e, kern, spec = _canon(FR_SPEC, (37, 1), 3, dev), FR_SPEC.N - 2, cuda_field.fr_pow, FR_SPEC
+    else:
+        x, e, kern, spec = _canon(FP_SPEC, (13, 3), 4, dev), (FP_SPEC.N + 1) >> 2, cuda_field.fp_pow, FP_SPEC
+    assert torch.equal(kern(x, e), cuda_field.pow_plain(x, spec, e))
+
+
+@pytest.mark.parametrize("tpb", [1, 3, 128])
+def test_block_size_keeps_results(dev, tpb, monkeypatch):
+    """Any block size gives the default's output (ragged last block)."""
+    from plutus_halo2_tpu_torch.ops import _build
+
+    x = _canon(FP_SPEC, (37, 2), 10, dev)
+    e = (FP_SPEC.N + 1) >> 2
+    want = cuda_field.fp_pow(x, e)
+    monkeypatch.setattr(_build, "BLOCK_THREADS", tpb)
+    assert torch.equal(cuda_field.fp_pow(x, e), want)
+
+
+def test_transcript_kernel(dev):
+    rng = np.random.default_rng(5)
+    lengths = [1, 128, 129, 300, 1275]
+    buf = torch.from_numpy(rng.integers(0, 256, size=(37, 1280), dtype=np.uint8)).to(dev)
+    got = cuda_blake.transcript_hashes(buf, lengths)
+    want = cuda_blake.transcript_hashes_plain(buf, lengths)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("K", [1, 5, 33])
+def test_msm_kernel(dev, K):
+    rng = np.random.default_rng(K)
+    host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=K)] + [None]
+    tab = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in host])).to(dev)
+    B = 9
+    pts = tab[torch.from_numpy(rng.integers(0, K + 1, size=(B, K))).to(dev)].contiguous()
+    sc = _canon(FR_SPEC, (B, K), 6, dev)
+    got, want = tc.to_affine(cuda_curve.msm(pts, sc)), tc.to_affine(cuda_curve.msm_plain(pts, sc))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_pairing_kernel(dev):
+    s_g2 = rc.g2_mul(rc.G2_GEN, 0xC0FFEE)
+    pp = cuda_pairing.PreparedPair(tp.prepare_g2(s_g2), tp.prepare_g2(rc.G2_GEN))
+    rng = np.random.default_rng(7)
+    host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=4)] + [None]
+    a = rc.g1_mul(rc.G1_GEN, 11)
+    # row 0 passes: e([11]G, [s]G2) e(-[11 s]G, G2) == 1
+    el = [a] + [host[i % 5] for i in range(4)]
+    er = [rc.g1_neg(rc.g1_mul(a, 0xC0FFEE))] + [host[(i + 2) % 5] for i in range(4)]
+    el_t = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in el])).to(dev)
+    er_t = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in er])).to(dev)
+    got = cuda_pairing.pairing_check(el_t, er_t, pp)
+    assert torch.equal(got, cuda_pairing.pairing_check_plain(el_t, er_t, pp))
+    assert got[0].item()
+
+
+def test_verifier_on_gpu_matches_cpu(dev):
+    """The whole slice on the card (every stage through its kernel) against
+    the same verifier on the CPU (every stage through its plain version), at
+    a small ragged batch of the committed simple_mul artifacts."""
+    import os
+
+    from plutus_halo2_tpu_torch.models.circuits import SimpleMulCircuit
+    from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
+    from plutus_halo2_tpu_torch.refimpl.keygen import plan_from_vk
+    from plutus_halo2_tpu_torch.utils.serialization import parse_public_inputs, vk_from_json
+
+    art = os.path.join(os.path.dirname(__file__), "..", "examples", "artifacts")
+
+    def read(name):
+        with open(os.path.join(art, f"simple_mul_{name}")) as f:
+            return f.read().strip()
+
+    plan = plan_from_vk(SimpleMulCircuit(), vk_from_json(read("vk.json")))
+    pis = parse_public_inputs(read("public_input.hex"))
+    good = np.frombuffer(bytes.fromhex(read("proof.hex")), np.uint8)
+    bad = np.frombuffer(bytes.fromhex(read("proof_invalid.hex")), np.uint8)
+    batch = np.stack([good, bad, good, good, bad]).copy()
+    batch[2, 100] ^= 0x40
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        v = TorchVerifier(plan, device=d, subgroup_check="off")
+        el, er, valid = v.core(batch, v.encode_public_inputs([pis] * len(batch)))
+        out[d.type] = (tc.to_affine(el), tc.to_affine(er), valid,
+                       v.verify(batch, v.encode_public_inputs([pis] * len(batch))))
+    g, c = out["cuda"], out["cpu"]
+    assert torch.equal(g[2].cpu(), c[2])
+    # pairing sides agree on rows whose points all decompressed: the complete
+    # addition formulas assume the curve equation, so the kernel's and the
+    # plain MSM's different addition chains part ways on off-curve points,
+    # which those rows' verdicts already reject
+    ok = c[2]
+    assert ok.any()
+    for a, b in zip(g[0] + g[1], c[0] + c[1]):
+        assert torch.equal(a.cpu()[ok], b[ok])
+    assert g[3].cpu().tolist() == c[3].tolist() == [True, False, False, True, False]
+
+
+def test_kernel_waits_for_queued_torch_work(dev):
+    """A kernel launched right behind queued torch work on its input sees
+    that work done: the wrappers launch on torch's current stream."""
+    a, b = _canon(FP_SPEC, (1 << 14,), 8, dev), _canon(FP_SPEC, (1 << 14,), 9, dev)
+    want = cuda_field.mont_mul_plain(a, b, FP_SPEC)
+    big = torch.randn(4096, 4096, device=dev)
+    for _ in range(3):
+        x = torch.zeros_like(a)
+        torch.cuda.synchronize()
+        for _ in range(4):
+            big = big @ big / 64.0  # queued device work ahead of the copy
+        x.copy_(a)
+        assert torch.equal(cuda_field.fp_mont_mul(x, b), want)
+
+
+_FIRST_LAUNCH = """
+import sys, numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from plutus_halo2_tpu_torch.ops import cuda_field
+from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC
+rng = np.random.default_rng(int(sys.argv[2]))
+bad = []
+for spec, kern in ((FP_SPEC, cuda_field.fp_mont_mul), (FR_SPEC, cuda_field.fr_mont_mul)):
+    ab = []
+    for _ in range(2):
+        v = [int.from_bytes(r.tobytes(), "little") % spec.N
+             for r in rng.integers(0, 256, size=(4096, 2 * spec.L), dtype=np.uint8)]
+        ab.append(torch.tensor([[(x >> (16 * i)) & 0xFFFF for i in range(spec.L)] for x in v]).cuda())
+    got, want = kern(*ab), cuda_field.mont_mul_plain(*ab, spec)
+    torch.cuda.synchronize()
+    bad.append(int((got != want).any(-1).sum()))
+print(bad)
+"""
+
+
+def test_first_launch_in_fresh_processes(dev):
+    """The first kernel launches of a fresh process (library load, module
+    load, first use of the constants) are exact, in a few new processes."""
+    import os
+    import subprocess
+    import sys
+
+    from plutus_halo2_tpu_torch.ops import _build
+
+    _build.library()  # build once, before the subprocesses load it
+    root = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    for seed in range(4):
+        out = subprocess.run([sys.executable, "-c", _FIRST_LAUNCH, root, str(seed)],
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.stdout.strip().splitlines()[-1] == "[0, 0]"
