@@ -3,23 +3,40 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — exact, hintless ``TorchVerifier.verify()``
-of the simple_mul circuit (halo2-book KZG, subgroup_check="off") at the
-headline batch B = 1024 — through its hand-written CUDA kernels, in phases:
+Drives the port's main path — ``TorchVerifier.verify()`` of the simple_mul
+circuit (halo2-book KZG) in its default mode (y-hints, the aggregate
+subgroup test fused into hinted decompression), the modes beside it,
+``verify_rlc`` and the serving loop, at the headline batch B = 1024 —
+through its hand-written CUDA kernels, in phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
   2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
      PyTorch product on 2^16 random canonical pairs (exactly equal);
-  4. kernels: transcript, Fr pow, Fp pow, MSM and pairing against their
-     plain PyTorch versions at the main path's shapes (exactly equal; the
-     MSM in affine coordinates; the pairing on 1024 distinct checks built
-     from the slice's pairing sides, half of them true), with CUDA-event
-     times and the least time the functions' operations need;
-  5. the slice: a B = 1024 batch of the committed simple_mul proof, its
-     committed tampered twin and one bit-flipped row; verdicts must equal
-     the expected vector and every kernel must have launched.
+  4. kernels: transcript, Fr pow, Fp pow, MSM, pairing, hinted
+     decompression (fused with the subgroup test at 1 round, and unfused)
+     and the aggregate subgroup test (1 and 2 rounds) against their plain
+     PyTorch versions at the main path's shapes (exactly equal; the MSM in
+     affine coordinates; the pairing on 1024 distinct checks built from the
+     slice's pairing sides, half of them true; decompression on the proof's
+     points and crafted encodings, its subgroup verdicts on the rows whose
+     points all decode), with CUDA-event times and the least time the
+     functions' operations need;
+  5. the paths, each on B = 1024 rows: a mixed batch of the committed
+     simple_mul proof, its committed tampered twin, one bit-flipped row, one
+     row with a corrupted proof scalar, one row whose first advice
+     commitment is a point outside G1 and one honest row with a corrupted
+     y-hint, through (a) the default mode, (b) the
+     hintless aggregate mode, (c) the hintless mode with subgroup_check
+     "off", (d) verify_rlc (group 8, hinted) on the mixed batch, and (e)
+     verify_rlc on an honest batch, (e') with one corrupted hint. Each path's
+     verdicts must equal its expected vector, and each path must launch
+     every kernel it runs (counts set to 0 before the path, read after it;
+     the "launches" of the kernels line sum these first calls);
+  6. serving: a VerificationService (batch 1024, RLC group 8) answers 1100
+     submissions, one full and one padded batch, and every future must
+     resolve to its expected verdict.
 
 Prints one ``{"kernels": [...]}`` line, then the card line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -144,6 +161,57 @@ def _msm_fp_products(scalars: list[int], live: list[bool]) -> int:
     top = max(nonempty)
     adds = 15 * terms + sum(c - 1 for c in count if c) + (len(nonempty) - 1)
     return 12 * adds + 8 * 5 * top
+
+
+SUB_WBITS, SUB_NWIN = 3, 6  # the aggregate test's signed windows of a weight < 2^16
+Z_LADDERS = 2 * (63 * 8 + 5 * 12) + 12 + 5  # [z^2 - 1]Q and the endomorphism comparison
+
+
+def _sub_digits(w: int) -> list[int]:
+    """Magnitudes of the signed 3-bit window digits of a weight < 2^16."""
+    out, carry = [], 0
+    for i in range(SUB_NWIN):
+        d = ((w >> (SUB_WBITS * i)) & 7) + carry
+        carry = int(d > 4)
+        out.append(8 - d if carry else d)
+    return out
+
+
+def _aggregate_fp_products(weights, live: list[bool]) -> int:
+    """Fp products of one row's aggregate subgroup test: per round, a 3-add
+    table per live (non-identity) point, per window the adds of its non-zero
+    digits into the window sum, a shared chain of 3 doublings per window
+    below the top non-empty one and the adds folding the window sums into
+    it; then two 64-bit z-ladders (63 doublings and 5 adds each), one add
+    and 5 products comparing phi(Q) with [z^2 - 1]Q."""
+    terms = sum(live)
+    if not terms:
+        return 0  # the identity aggregate is a member: nothing to compute
+    total = 0
+    for w_r in weights:
+        count = [0] * SUB_NWIN
+        for w, ok in zip(w_r, live):
+            if ok:
+                for i, m in enumerate(_sub_digits(int(w))):
+                    count[i] += m != 0
+        nonempty = [i for i in range(SUB_NWIN) if count[i]]
+        adds = 3 * terms + sum(c - 1 for c in count if c) + len(nonempty) - 1
+        total += 12 * adds + 8 * SUB_WBITS * max(nonempty) + Z_LADDERS
+    return total
+
+
+DECODE_FP_PRODUCTS = 8  # x and the hint to Montgomery, x^3, hint^2, canonical y, two out
+
+
+def _nonsubgroup_point(P: int, in_g1) -> tuple[int, int]:
+    """A valid E(Fp) point with nonzero h-torsion (outside G1)."""
+    x = 100
+    while True:
+        rhs = (x**3 + 4) % P
+        y = pow(rhs, (P + 1) >> 2, P)
+        if y * y % P == rhs and not in_g1((x, y)):
+            return (x, y)
+        x += 1
 
 
 def _blake_ops(lengths) -> int:
@@ -365,52 +433,269 @@ def main() -> int:
     print(f"[kernel] pairing rows: {B} distinct checks, {int(true_row.sum())} true, "
           f"{int((~true_row).sum())} false")
 
-    # ---- 5. the slice -----------------------------------------------------
+    # hinted decompression at (B, 10): the proof's points with their hints;
+    # in three of every four rows one point replaced by a crafted encoding
+    # (encoding, hint, decodes, lies in G1)
+    P = FP_SPEC.N
+    evil = _nonsubgroup_point(P, rc.g1_in_subgroup)
+    lay = verifier.layout
+    honest_raw = np.stack([proofs["proof"][o : o + 48] for o in lay.point_offsets.values()])
+    honest_hints = verifier.compute_y_hints(proofs["proof"][None])[0]
+    pt0 = rc.g1_decompress(honest_raw[0].tobytes())
+    y0 = limbs_to_int(honest_hints[0])
+    x_nr = next(x for x in range(1, 1000) if pow((x**3 + 4) % P, (P - 1) // 2, P) == P - 1)
+    flagged = lambda v: bytes([v.to_bytes(48, "big")[0] | 0x80]) + v.to_bytes(48, "big")[1:]  # noqa: E731
+    crafted = [
+        (rc.g1_compress(evil), evil[1], True, False),                # outside G1
+        (bytes([0xC0] + [0] * 47), 0, True, True),                   # infinity
+        (bytes([0xC0, 1] + [0] * 46), 0, False, True),               # bad infinity
+        (flagged(P + 2), 3, False, True),                            # x >= p
+        (flagged(x_nr), 12345, False, True),                         # x^3 + 4 not a square
+        (bytes([honest_raw[0, 0] & 0x7F]) + honest_raw[0, 1:].tobytes(), y0, False, True),  # no flag
+        (honest_raw[0].tobytes(), y0 + 1, False, True),              # wrong hint
+        (honest_raw[0].tobytes(), y0 + (7 << 384), True, True),      # oversized hint: mod 2^384
+    ]
+    assert rc.g1_decompress(honest_raw[0].tobytes()) == pt0
+    raw = np.broadcast_to(honest_raw, (B, n_pts, 48)).copy()
+    hints = np.broadcast_to(honest_hints, (B, n_pts, FP_SPEC.L)).copy()
+    decodes = np.ones((B, n_pts), bool)
+    member = np.ones(B, bool)
+    for r in range(B):
+        if r % 4:
+            enc, hint, ok, in_g1 = crafted[(r // 4) % len(crafted)]
+            raw[r, r % n_pts] = np.frombuffer(enc, np.uint8)
+            hints[r, r % n_pts] = [(hint >> (16 * j)) & 0xFFFF for j in range(FP_SPEC.L)]
+            decodes[r, r % n_pts], member[r] = ok, in_g1
+    raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
+    sub_w = tc.subgroup_weights(n_pts, 1, torch.Generator().manual_seed(SEED))
+    got = cuda_curve.decompress_hinted(raw_t, hints_t, sub_w)
+    want = cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w)
+    unfused = cuda_curve.decompress_hinted(raw_t, hints_t)
+    torch.cuda.synchronize()
+    rows_ok = got[1].all(-1)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        _fail("decompress kernel's points or valid flags differ from the plain version")
+    if not (torch.equal(unfused[0], got[0]) and torch.equal(unfused[1], got[1])):
+        _fail("unfused decompress kernel differs from the fused one")
+    if not torch.equal(got[1].cpu(), torch.from_numpy(decodes)):
+        _fail("decompress valid flags differ from the encodings' construction")
+    if not (torch.equal(got[2][rows_ok], want[2][rows_ok])
+            and torch.equal(got[2] & rows_ok, want[2] & rows_ok)):
+        _fail("fused subgroup verdicts differ from the plain version on rows that decode")
+    if not torch.equal(got[2][rows_ok].cpu(), torch.from_numpy(member)[rows_ok.cpu()]):
+        _fail("fused subgroup verdicts differ from the rows' construction")
+    w_host = sub_w.tolist()
+    live_pts = (~tc.is_identity(got[0])).cpu().numpy()
+    dec_products = DECODE_FP_PRODUCTS * int((raw[..., 0] & 0x40 == 0).sum())
+    agg_products = sum(_aggregate_fp_products(w_host, list(lv)) for lv in live_pts)
+    record("decompress", "plutus_halo2_tpu_torch/csrc/decompress.cu",
+           "plutus_halo2_tpu/ops/pallas_curve.py:367",
+           limb_err(got[0], want[0]),
+           _median_ms(lambda: cuda_curve.decompress_hinted(raw_t, hints_t, sub_w), 20),
+           _median_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w), 2),
+           _bound_ms(2 * (dec_products + agg_products) * _cios_products(12),
+                     raw.size + 8 * hints.size + 8 * got[0].numel() + got[1].numel() + B))
+    unfused_ms = _median_ms(lambda: cuda_curve.decompress_hinted(raw_t, hints_t), 20)
+    print(f"[kernel] decompress rows: {int(rows_ok.sum())} of {B} decode, "
+          f"{int((rows_ok & got[2]).sum())} of them in G1; unfused variant {unfused_ms:.3f} ms "
+          f"(plain {_median_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t), 2):.3f} ms)")
+
+    # aggregate subgroup test at (B, 10) on decoded points: honest rows, rows
+    # with identities, rows with a point outside G1; rounds 1 and 2
+    pts_ok = got[0][rows_ok][:1].expand(B, -1, -1, -1).clone()
+    ident = torch.from_numpy(tc.host_point_to_mont(None)).to(dev)
+    evil_pt = torch.from_numpy(tc.host_point_to_mont(evil)).to(dev)
+    sub_kind = torch.arange(B, device=dev) % 3  # 0 honest, 1 identities, 2 outside G1
+    pts_ok[sub_kind == 1, 1::3] = ident
+    pts_ok[sub_kind == 2, 4] = evil_pt
+    pts_ok = pts_ok.contiguous()
+    sub_member = sub_kind != 2
+    live_sub = (~tc.is_identity(pts_ok)).cpu().numpy()
+    for rounds in (1, 2):
+        w_r = tc.subgroup_weights(n_pts, rounds, torch.Generator().manual_seed(SEED + rounds))
+        ok_k = cuda_curve.aggregate_subgroup_check(pts_ok, w_r)
+        ok_p = cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r)
+        torch.cuda.synchronize()
+        if not torch.equal(ok_k, ok_p):
+            _fail(f"subgroup kernel differs from the plain version at {rounds} rounds")
+        if not torch.equal(ok_k, sub_member):
+            _fail(f"subgroup verdicts differ from the rows' construction at {rounds} rounds")
+        ms = _median_ms(lambda: cuda_curve.aggregate_subgroup_check(pts_ok, w_r), 20)
+        plain_ms = _median_ms(lambda: cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r), 2)
+        bound = _bound_ms(2 * sum(_aggregate_fp_products(w_r.tolist(), list(lv)) for lv in live_sub)
+                          * _cios_products(12), 8 * pts_ok.numel() + B)
+        if rounds == 1:
+            record("subgroup", "plutus_halo2_tpu_torch/csrc/subgroup.cu",
+                   "plutus_halo2_tpu/ops/pallas_curve.py:642", int((ok_k != ok_p).sum()), ms, plain_ms,
+                   bound)
+        else:
+            print(f"[kernel] subgroup at 2 rounds: exact, {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+                  f"bound {bound[0]:.4f} ms by {bound[1]})")
+    print(f"[kernel] subgroup rows: {int(sub_member.sum())} in G1, {int((~sub_member).sum())} not")
+
+    # ---- 5. the paths ------------------------------------------------------
     counters = {
         "transcript": cuda_blake.transcript_hashes, "pow_fr": cuda_field.fr_pow,
         "pow_fp": cuda_field.fp_pow, "msm": cuda_curve.msm, "pairing": cuda_pairing.pairing_check,
+        "decompress": cuda_curve.decompress_hinted, "subgroup": cuda_curve.aggregate_subgroup_check,
     }
-    for fn in counters.values():
-        fn.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    verdicts = verifier.verify(proof_t, pis_t)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    if not np.array_equal(verdicts.cpu().numpy(), expected):
-        _fail(f"verdicts differ from the expected vector at rows "
-              f"{np.nonzero(verdicts.cpu().numpy() != expected)[0][:10].tolist()}")
-    for name, n in launches.items():
-        if n <= 0:
-            _fail(f"kernel {name} was not launched on the main path")
-        results[name]["launches"] = n
-    print(f"[slice] B={B}: verdicts exact ({int(expected.sum())} accept, {int((~expected).sum())} reject), "
-          f"msm terms {verifier.msm_term_counts}, launches {launches}, first call {first_s:.3f} s")
-
-    walls = []
-    verifier.timings = {}
-    for _ in range(3):
+    for r in results.values():
+        r["launches"] = 0
+    def run_path(name, fn, want, needs):
+        """One path's first call with the launch counts set to 0 before it
+        and read after it; its verdicts against the expected vector."""
+        for f in counters.values():
+            f.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        v = verifier.verify(proof_t, pis_t)
+        out = fn()
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-        if not np.array_equal(v.cpu().numpy(), expected):
-            _fail("verdicts changed between runs")
-    wall = statistics.median(walls)
-    print(f"[slice] {B / wall:.1f} proofs/s (median of 3 verify() calls: {wall * 1e3:.1f} ms per batch)")
-    stage_ms = {name: statistics.median(s.elapsed_time(e) for s, e in evs)
-                for name, evs in verifier.timings.items()}
-    for name in ("transcript", "decompress", "fr_side", "msm", "pairing"):
-        print(f"[slice] stage {name:<10} {stage_ms.get(name, float('nan')):9.3f} ms")
-    other = wall * 1e3 - sum(stage_ms.values())
-    print(f"[slice] stage {'other':<10} {other:9.3f} ms (multi-open scalar glue, parsing, host)")
+        first_s = time.perf_counter() - t0
+        out = out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
+        launches = {k: f.launches for k, f in counters.items()}
+        if not np.array_equal(out, want):
+            _fail(f"path {name}: verdicts differ from the expected vector at rows "
+                  f"{np.nonzero(out != want)[0][:10].tolist()}")
+        for k in needs:
+            if launches[k] <= 0:
+                _fail(f"path {name}: kernel {k} was not launched")
+        for k, n in launches.items():
+            results[k]["launches"] += n
+        print(f"[path] {name}: verdicts exact ({int(want.sum())} accept, {int((~want).sum())} reject), "
+              f"launches {launches}, first call {first_s:.3f} s")
+        return launches
+
+    def stage_table(label, v, wall):
+        """Median CUDA-event ms per stage of v's recorded calls; "other" is
+        the wall time the stages leave."""
+        stage_ms = {k: statistics.median(a.elapsed_time(b) for a, b in evs) for k, evs in v.timings.items()}
+        for k, ms in stage_ms.items():
+            print(f"[path] {label} stage {k:<10} {ms:9.3f} ms")
+        print(f"[path] {label} stage {'other':<10} {wall * 1e3 - sum(stage_ms.values()):9.3f} ms "
+              f"(multi-open scalar glue, parsing, host)")
+
+    def timed(fn, calls=3):
+        walls = []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return statistics.median(walls)
+
+    # one row that only the pairing rejects (a corrupted proof scalar: every
+    # point still decodes and lies in G1), so that RLC re-checks its group
+    EVIL_ROW, HINT_ROW, SCALAR_ROW = 6, 7, 1
+    batch[SCALAR_ROW, list(lay.scalar_offsets.values())[0] + 3] ^= 0x40
+    expected[SCALAR_ROW] = False
+    batch[EVIL_ROW, 0:48] = np.frombuffer(rc.g1_compress(evil), np.uint8)  # first advice commitment
+    expected[EVIL_ROW] = False
+    proof_t = torch.from_numpy(batch).to(dev)
+    t0 = time.perf_counter()
+    hints = verifier.compute_y_hints(batch)
+    print(f"[path] compute_y_hints host time at B={B}: {(time.perf_counter() - t0) * 1e3:.1f} ms "
+          f"({len(np.unique(batch, axis=0))} distinct proofs)")
+    hints[HINT_ROW, 2, 0] ^= 1
+    hints_t = torch.from_numpy(hints).to(dev)
+    hinted = expected.copy()
+    hinted[HINT_ROW] = False
+    default = TorchVerifier(plan)  # the default: aggregate subgroup mode, device cuda
+    gen = torch.Generator().manual_seed(SEED)
+    base = ("transcript", "pow_fr", "msm", "pairing")
+
+    # (a) the default mode
+    run_path("a default (hints, fused aggregate subgroup)",
+             lambda: default.verify(proof_t, pis_t, hints_t, gen), hinted, base + ("decompress",))
+    default.timings = {}
+    wall = timed(lambda: default.verify(proof_t, pis_t, hints_t, gen))
+    print(f"[path] a: {B / wall:.1f} proofs/s (median of 3 verify() calls: {wall * 1e3:.1f} ms per batch)")
+    stage_table("a", default, wall)
+    default.timings = None
+
+    # (b) the hintless aggregate mode (__graft_entry__.entry()'s path)
+    run_path("b hintless aggregate", lambda: default.verify(proof_t, pis_t, None, gen), expected,
+             base + ("pow_fp", "subgroup"))
+    # (c) the hintless mode with the subgroup test off
+    run_path("c hintless, subgroup off", lambda: verifier.verify(proof_t, pis_t), expected,
+             base + ("pow_fp",))
+    # the swapped row fails the subgroup test in the aggregate and exact
+    # modes only (it also rejects through its changed transcript)
+    for mode in ("aggregate", "exact", "off"):
+        v_m = TorchVerifier(plan, subgroup_check=mode)
+        valid = v_m.core(proof_t, pis_t, hints_t, v_m.subgroup_weights(gen))[2]
+        if bool(valid[EVIL_ROW]) != (mode == "off"):
+            _fail(f"core() in mode {mode}: all_valid of the non-subgroup row is {bool(valid[EVIL_ROW])}")
+    print("[path] non-subgroup row: all_valid False in aggregate and exact modes, True in off mode")
+
+    # (d) verify_rlc on the mixed batch: failing groups, re-checked rows
+    rlc_needs = base + ("decompress",)
+    launches_d = run_path("d verify_rlc group 8, mixed", lambda: default.verify_rlc(
+        proof_t, pis_t, hints_t, group=8, generator=gen), hinted, rlc_needs)
+    if launches_d["pairing"] < 2:
+        _fail("path d did not re-check its failing group")
+    if default.msm_term_counts != [16, 8]:  # the multi-open MSM, then the RLC aggregation
+        _fail(f"path d ran MSMs of K = {default.msm_term_counts}, expected [16, 8]")
+    # (e) an honest batch: no re-check; (e') one corrupted hint
+    honest_t = torch.from_numpy(np.stack([proofs["proof"]] * B)).to(dev)
+    honest_hints = torch.from_numpy(verifier.compute_y_hints(np.stack([proofs["proof"]] * B))).to(dev)
+    launches_e = run_path("e verify_rlc group 8, honest", lambda: default.verify_rlc(
+        honest_t, pis_t, honest_hints, group=8, generator=gen), np.ones(B, bool), rlc_needs)
+    if launches_e["pairing"] != 1:
+        _fail("path e re-checked rows of an honest batch")
+    default.timings = {}
+    wall_e = timed(lambda: default.verify_rlc(honest_t, pis_t, honest_hints, group=8, generator=gen))
+    print(f"[path] e: {B / wall_e:.1f} proofs/s (median of 3 verify_rlc() calls: {wall_e * 1e3:.1f} ms "
+          f"per batch)")
+    stage_table("e", default, wall_e)
+    default.timings = None
+    bad_hint = honest_hints.clone()
+    bad_hint[B - 3, 0, 0] ^= 1
+    want_e2 = np.ones(B, bool)
+    want_e2[B - 3] = False
+    run_path("e' verify_rlc group 8, one corrupted hint", lambda: default.verify_rlc(
+        honest_t, pis_t, bad_hint, group=8, generator=gen), want_e2, rlc_needs)
+
+    # ---- 6. serving ----------------------------------------------------------
+    from plutus_halo2_tpu_torch.serving import ProofBundle, VerificationService
+
+    good_b, bad_b = bytes(proofs["proof"]), bytes(proofs["proof_invalid"])
+    flip_b = bytearray(good_b)
+    flip_b[100] ^= 0x40
+    n_sub = B + max(1, B // 13)  # one full batch and one padded one
+    svc = VerificationService(plan, batch_size=B, linger_s=1.0, rlc_group=8)
+    try:
+        t0 = time.perf_counter()
+        subs, want_s = [], []
+        for i in range(n_sub):
+            proof_b = bad_b if i % 13 == 5 else bytes(flip_b) if i % 29 == 7 else good_b
+            bundle = ProofBundle(proof_b, tuple(pis))
+            subs.append((bundle, svc.submit(bundle)))
+            want_s.append(proof_b == good_b)
+        gated = ProofBundle(good_b, tuple(pis))
+        subs.append((gated, svc.submit(gated, expected_tag=ProofBundle(bad_b, tuple(pis)).tag)))
+        want_s.append(False)
+        got_s = []
+        for bundle, fut in subs:
+            tag, ok = fut.result(timeout=600)  # an exception fails the run
+            if tag != bundle.tag:
+                _fail("serving: a future resolved with another bundle's tag")
+            got_s.append(ok)
+        serve_s = time.perf_counter() - t0
+    finally:
+        svc.close()
+    if got_s != want_s:
+        _fail(f"serving: verdicts differ at {[i for i, (g, w) in enumerate(zip(got_s, want_s)) if g != w][:10]}")
+    if svc.dispatches != 2:
+        _fail(f"serving: {svc.dispatches} dispatches, expected one full and one padded batch")
+    print(f"[serve] {n_sub + 1} submissions: verdicts exact ({sum(want_s)} accept), "
+          f"{svc.dispatches} dispatches, {serve_s:.2f} s")
 
     ecc_after, xid = _health()
     print(f"[health] ECC after the run: {ecc_after} (before: {ecc_before})")
     print(f"[health] Xid: {xid}")
-    print(json.dumps({"kernels": [results[n] for n in ("transcript", "pow_fr", "pow_fp", "msm", "pairing")]}))
+    print(json.dumps({"kernels": [results[n] for n in ("transcript", "pow_fr", "pow_fp", "msm", "pairing",
+                                                       "decompress", "subgroup")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

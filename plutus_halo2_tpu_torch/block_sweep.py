@@ -2,12 +2,15 @@
 
     python3 -m plutus_halo2_tpu_torch.block_sweep [--batch 1024] [--reps 5]
 
-Times the transcript, Fr pow, Fp pow and pairing kernels at the verifier's
-shapes (B rows; the Fp pow at B x 10 elements) with CUDA events, at the
-default block size (``ops._build.BLOCK_THREADS``) and at fixed sizes from 1
-to 128 threads, checks that every size gives the default's output, and
-prints one JSON line per kernel with the median ms per size. Then it
-times ``TorchVerifier.verify()`` on a B-proof batch of the committed
+Times the transcript, Fr pow, Fp pow, pairing, hinted decompression (fused
+with the 1-round subgroup test) and aggregate subgroup kernels at the
+verifier's shapes (B rows; the Fp pow and decompression at B x 10 points)
+with CUDA events, at the default block size (``ops._build.BLOCK_THREADS``;
+the row-layout kernels take BLOCK_THREADS // 16 rows of 16 lanes per block)
+and at fixed sizes from 1 to 128 threads, checks that every size gives the
+default's output, and prints one JSON line per kernel with the median ms
+per size. Then it times ``TorchVerifier.verify()`` in the default mode
+(y-hints, the aggregate subgroup test) on a B-proof batch of the committed
 simple_mul proof at the default block size and at one thread per block,
 alternated (1, default, default, 1, ...) in one process so that the
 host's drift falls on both, and prints the median batch ms and stage ms
@@ -73,18 +76,21 @@ def _verify_ab(B: int, rounds: int):
     plan = plan_from_vk(SimpleMulCircuit(), vk_from_json((art / "simple_mul_vk.json").read_text()))
     proof = np.frombuffer(bytes.fromhex((art / "simple_mul_proof.hex").read_text().strip()), np.uint8)
     pis = parse_public_inputs((art / "simple_mul_public_input.hex").read_text())
-    v = TorchVerifier(plan, subgroup_check="off")
-    proofs = torch.from_numpy(np.stack([proof] * B).copy()).cuda()
+    v = TorchVerifier(plan)
+    batch = np.stack([proof] * B).copy()
+    proofs = torch.from_numpy(batch).cuda()
     pis_t = torch.from_numpy(v.encode_public_inputs([pis] * B)).cuda()
+    hints = torch.from_numpy(v.compute_y_hints(batch)).cuda()
+    gen = torch.Generator().manual_seed(1)
     default = _build.BLOCK_THREADS
-    v.verify(proofs, pis_t)  # warm-up
+    v.verify(proofs, pis_t, hints, gen)  # warm-up
     runs = {1: [], default: []}
     for t in [1, default, default, 1] * rounds:
         _build.BLOCK_THREADS = t
         v.timings = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ok = v.verify(proofs, pis_t)
+        ok = v.verify(proofs, pis_t, hints, gen)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         if not bool(ok.all()):
@@ -121,11 +127,20 @@ def main(argv=None) -> int:
     el, er = sides[:B].contiguous(), sides[B:].contiguous()
     pp = cuda_pairing.PreparedPair(tp.prepare_g2(rc.g2_mul(rc.G2_GEN, 0xC0FFEE)),
                                    tp.prepare_g2(rc.G2_GEN))
+    # compressed G1 points with their y-hints: a pool of 16, tiled
+    pool = [rc.g1_mul(rc.G1_GEN, int(k)) for k in rng.integers(1, 2**62, size=16)]
+    pick = rng.integers(0, len(pool), size=(B, 10))
+    raw = torch.from_numpy(np.stack([np.frombuffer(rc.g1_compress(p), np.uint8) for p in pool])[pick]).to(dev)
+    hints = torch.from_numpy(np.stack([FP_SPEC.encode(p[1]) for p in pool])[pick]).to(dev)
+    sub_w = tc.subgroup_weights(10, 1, torch.Generator().manual_seed(args.seed))
+    pts = cuda_curve.decompress_hinted(raw, hints)[0]
     cases = (
         ("transcript", B, lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)),
         ("pow_fr", B, lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2)),
         ("pow_fp", 10 * B, lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2)),
         ("pairing", B, lambda: cuda_pairing.pairing_check(el, er, pp)),
+        ("decompress", 10 * B, lambda: cuda_curve.decompress_hinted(raw, hints, sub_w)),
+        ("subgroup", 10 * B, lambda: cuda_curve.aggregate_subgroup_check(pts, sub_w)),
     )
     default = _build.BLOCK_THREADS
     for name, n, fn in cases:

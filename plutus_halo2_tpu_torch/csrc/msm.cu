@@ -20,93 +20,7 @@
 // the identity, a zero scalar and doublings need no branch. Then the row's
 // K partial results are summed by a halving tree in shared memory. Rows of
 // up to 32 points share a warp; any B works (the ragged edge is masked).
-#include "field.cuh"
-
-struct Pt {
-  uint32_t x[12], y[12], z[12];
-};
-
-DEV void pt_identity(Pt& p) {
-  f_zero<FpT>(p.x);
-  f_one<FpT>(p.y);
-  f_zero<FpT>(p.z);
-}
-
-// 3 b = 12 in the kernel's Montgomery domain: 12 R mod p = 12 * one
-DEV void b3_times(uint32_t* r, const uint32_t* a) {
-  uint32_t t2[12], t4[12], t8[12];
-  f_add<FpT>(t2, a, a);
-  f_add<FpT>(t4, t2, t2);
-  f_add<FpT>(t8, t4, t4);
-  f_add<FpT>(r, t8, t4);
-}
-
-// Complete addition, RCB15 Algorithm 7 (a = 0); r may alias p or q.
-DEV_NOINLINE void pt_add(Pt& r, const Pt& p, const Pt& q) {
-  uint32_t t0[12], t1[12], t2[12], t3[12], t4[12], X3[12], Y3[12], Z3[12];
-  f_mul<FpT>(t0, p.x, q.x);
-  f_mul<FpT>(t1, p.y, q.y);
-  f_mul<FpT>(t2, p.z, q.z);
-  f_add<FpT>(t3, p.x, p.y);
-  f_add<FpT>(t4, q.x, q.y);
-  f_mul<FpT>(t3, t3, t4);
-  f_add<FpT>(t4, t0, t1);
-  f_sub<FpT>(t3, t3, t4);
-  f_add<FpT>(t4, p.y, p.z);
-  f_add<FpT>(X3, q.y, q.z);
-  f_mul<FpT>(t4, t4, X3);
-  f_add<FpT>(X3, t1, t2);
-  f_sub<FpT>(t4, t4, X3);
-  f_add<FpT>(X3, p.x, p.z);
-  f_add<FpT>(Y3, q.x, q.z);
-  f_mul<FpT>(X3, X3, Y3);
-  f_add<FpT>(Y3, t0, t2);
-  f_sub<FpT>(Y3, X3, Y3);
-  f_add<FpT>(X3, t0, t0);
-  f_add<FpT>(t0, X3, t0);
-  b3_times(t2, t2);
-  f_add<FpT>(Z3, t1, t2);
-  f_sub<FpT>(t1, t1, t2);
-  b3_times(Y3, Y3);
-  f_mul<FpT>(X3, t4, Y3);
-  f_mul<FpT>(t2, t3, t1);
-  f_sub<FpT>(X3, t2, X3);
-  f_mul<FpT>(Y3, Y3, t0);
-  f_mul<FpT>(t1, t1, Z3);
-  f_add<FpT>(Y3, t1, Y3);
-  f_mul<FpT>(t0, t0, t3);
-  f_mul<FpT>(Z3, Z3, t4);
-  f_add<FpT>(Z3, Z3, t0);
-  f_copy<FpT>(r.x, X3);
-  f_copy<FpT>(r.y, Y3);
-  f_copy<FpT>(r.z, Z3);
-}
-
-// Complete doubling, RCB15 Algorithm 9 (a = 0); r may alias p.
-DEV_NOINLINE void pt_double(Pt& r, const Pt& p) {
-  uint32_t t0[12], t1[12], t2[12], X3[12], Y3[12], Z3[12];
-  f_mul<FpT>(t0, p.y, p.y);
-  f_add<FpT>(Z3, t0, t0);
-  f_add<FpT>(Z3, Z3, Z3);
-  f_add<FpT>(Z3, Z3, Z3);
-  f_mul<FpT>(t1, p.y, p.z);
-  f_mul<FpT>(t2, p.z, p.z);
-  b3_times(t2, t2);
-  f_mul<FpT>(X3, t2, Z3);
-  f_add<FpT>(Y3, t0, t2);
-  f_mul<FpT>(Z3, t1, Z3);
-  f_add<FpT>(t1, t2, t2);
-  f_add<FpT>(t2, t1, t2);
-  f_sub<FpT>(t0, t0, t2);
-  f_mul<FpT>(Y3, t0, Y3);
-  f_add<FpT>(Y3, X3, Y3);
-  f_mul<FpT>(t1, p.x, p.y);
-  f_mul<FpT>(X3, t0, t1);
-  f_add<FpT>(X3, X3, X3);
-  f_copy<FpT>(r.x, X3);
-  f_copy<FpT>(r.y, Y3);
-  f_copy<FpT>(r.z, Z3);
-}
+#include "curve.cuh"  // Pt, pt_identity, pt_add, pt_double
 
 constexpr int WBITS = 5, NWIN = 52, TENT = 17;  // 52 * 5 = 260 >= 256 bits
 
@@ -161,9 +75,7 @@ __global__ void msm_kernel(const int64_t* pts, const int64_t* sc, int64_t* out, 
   if (row < B && lane < K) {
     const size_t i = (size_t)row * K + lane;
     Pt P;
-    load_port<FpT>(P.x, pts + i * 75);
-    load_port<FpT>(P.y, pts + i * 75 + 25);
-    load_port<FpT>(P.z, pts + i * 75 + 50);
+    pt_load_port(P, pts + i * 75);
     uint32_t s[8];
     load_words<8>(s, sc + i * 17);
     scalar_mul(acc, P, s);
@@ -175,10 +87,7 @@ __global__ void msm_kernel(const int64_t* pts, const int64_t* sc, int64_t* out, 
     __syncthreads();
   }
   if (lane == 0 && row < B) {
-    int64_t* o = out + (size_t)row * 75;
-    store_port<FpT>(o, part[threadIdx.x].x);
-    store_port<FpT>(o + 25, part[threadIdx.x].y);
-    store_port<FpT>(o + 50, part[threadIdx.x].z);
+    pt_store_port(out + (size_t)row * 75, part[threadIdx.x]);
   }
 }
 

@@ -3,30 +3,38 @@
 
 Pipeline per batch (each proof a row):
   proof bytes -> transcript buffer (gather) -> all Fiat-Shamir challenges
-  (transcript kernel) -> point decompression (the Fp pow kernel as the sqrt
-  ladder) -> scalar work over Fr (one pooled batch inversion rooted in the
-  Fr pow kernel, Lagrange basis, vanishing fold) -> the Halo2-book
-  multi-open MSM (MSM kernel) -> the pairing check (pairing kernel).
+  (transcript kernel) -> point decompression (with y-hints the hinted
+  decompression kernel, which in the default "aggregate" subgroup mode also
+  runs the per-row aggregate subgroup test; without, the Fp pow kernel as
+  the sqrt ladder, then the subgroup kernel) -> scalar work over Fr (one
+  pooled batch inversion rooted in the Fr pow kernel, Lagrange basis,
+  vanishing fold) -> the Halo2-book multi-open MSM (MSM kernel) -> the
+  pairing check (pairing kernel).
 
-On a CUDA device the four stages named above run as the hand-written
-kernels of ``csrc/``; the O(1)-per-proof glue between them is batched torch
-code (``ops/limb.py``). On the CPU every stage runs its plain version.
+``verify_rlc`` shares that core and replaces the per-row pairing by one
+pairing per group of rows on random-linear-combination aggregates (the MSM
+kernel at K = group), re-checking the rows of failing groups exactly.
 
-This slice implements exact ``verify()`` without y-hints, with
-``subgroup_check="off"``, for the Halo2-book KZG flavor.
+On a CUDA device the stages named above run as the hand-written kernels of
+``csrc/``; the O(1)-per-proof glue between them is batched torch code
+(``ops/limb.py``). On the CPU every stage runs its plain version. This
+port covers the Halo2-book KZG flavor.
 """
 
 from __future__ import annotations
+
+import secrets
 
 import numpy as np
 import torch
 
 from ..ops import cuda_blake, cuda_curve, cuda_field, cuda_pairing
 from ..ops import curve as tc
+from ..ops.curve import DEFAULT_SUBGROUP_ROUNDS
 from ..ops.limb import FP_SPEC, FR_SPEC, fr
 from ..ops.pairing import prepare_g2
 from ..refimpl.curve import G1_GEN, G2_GEN, g1_neg
-from ..refimpl.field import FR_DELTA, Q
+from ..refimpl.field import FR_DELTA, P, Q
 from .layout import build_layout
 from .plan import FLAVOR_HALO2, CircuitPlan, eval_expr, rot_offset
 
@@ -49,9 +57,6 @@ _COM_KEYS = {
     "lookup_perm_input_com": "lookup_perm_input_{}",
     "lookup_perm_table_com": "lookup_perm_table_{}",
 }
-
-_NEXT_SLICE = "ROADMAP.md section A, next slice (hinted decompression + aggregate subgroup kernels)"
-
 
 def resolve_device(device=None) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU."""
@@ -186,11 +191,21 @@ class TorchVerifier:
     canonical Fr limbs) -> (B,) bool. Build once per plan.
 
     device: None resolves to "cuda" (raises without a GPU); "cpu" runs the
-    plain versions of every kernel. subgroup_check takes JaxVerifier's modes
-    and default; only "off" exists in this slice."""
+    plain versions of every kernel.
+
+    subgroup_check: the reference rejects proof points outside the q-order
+    subgroup inside bls12_381_G1_uncompress. Modes, as JaxVerifier's:
+      "aggregate" (default): per row, the points summed with fresh
+          verifier-side weights and only the aggregate tested; honest rows
+          always pass, a non-subgroup encoding evades with probability
+          <= 3^-subgroup_rounds per submission;
+      "exact" / True: the per-point test (plain torch on the device);
+      "off" / False: encodings are trusted to be subgroup members.
+    The proof verdict itself is cofactor-insensitive either way."""
 
     def __init__(self, plan: CircuitPlan, device=None,
-                 subgroup_check: bool | str = "aggregate", _state: dict | None = None):
+                 subgroup_check: bool | str = "aggregate",
+                 subgroup_rounds: int = DEFAULT_SUBGROUP_ROUNDS, _state: dict | None = None):
         self.device = resolve_device(device)
         if subgroup_check is True:
             subgroup_check = "exact"
@@ -198,14 +213,13 @@ class TorchVerifier:
             subgroup_check = "off"
         if subgroup_check not in ("aggregate", "exact", "off"):
             raise ValueError(f"unknown subgroup_check {subgroup_check!r}")
-        if subgroup_check != "off":
-            raise NotImplementedError(
-                f"subgroup_check={subgroup_check!r} is not ported yet ({_NEXT_SLICE}); "
-                "use subgroup_check='off'")
+        if int(subgroup_rounds) < 1:
+            raise ValueError(f"subgroup_rounds must be >= 1, got {subgroup_rounds}")
         if plan.flavor != FLAVOR_HALO2:
             raise NotImplementedError(
                 "only the halo2-book KZG flavor is ported (ROADMAP.md section A: GWC flavor)")
         self.subgroup_check = subgroup_check
+        self.subgroup_rounds = int(subgroup_rounds)
         self.plan = plan
         self.layout = build_layout(plan)
         self.n_pi = plan.vk.num_public_inputs
@@ -226,6 +240,7 @@ class TorchVerifier:
         self.one_fr = t(st["one_fr"])
         self.pair = cuda_pairing.PreparedPair(st["prep_sg2"], st["prep_g2"])
         self.neg_g1 = t(tc.host_point_to_mont(g1_neg(G1_GEN)))
+        self.ident = t(tc.host_point_to_mont(None))
         self.exprs = [_precompute_delta_pows(e) for e in plan.vanishing_expressions()]
 
         lay = self.layout
@@ -241,12 +256,13 @@ class TorchVerifier:
         self._sc_idx = t(np.stack([np.arange(32) + off for off in lay.scalar_offsets.values()])) \
             if lay.scalar_offsets else None
         self._pt_idx = t(np.stack([np.arange(48) + off for off in lay.point_offsets.values()]))
-        self.msm_term_counts: list[int] = []
+        self.msm_term_counts: list[int] = []  # K of each MSM of the last call
         self.timings: dict | None = None  # set to {} to record per-stage CUDA events
 
     @classmethod
     def from_jax_state(cls, plan: CircuitPlan, state: dict, device=None,
-                       subgroup_check: str = "off") -> "TorchVerifier":
+                       subgroup_check: bool | str = "aggregate",
+                       subgroup_rounds: int = DEFAULT_SUBGROUP_ROUNDS) -> "TorchVerifier":
         """A verifier that computes with exactly the given host constants
         (the JAX verifier's attributes named in STATE_KEYS, as numpy arrays
         or dicts of them) instead of deriving its own."""
@@ -256,7 +272,8 @@ class TorchVerifier:
         st = {k: state[k] for k in STATE_KEYS}
         st["prep_sg2"] = {k: np.asarray(v).astype(np.int64) for k, v in st["prep_sg2"].items()}
         st["prep_g2"] = {k: np.asarray(v).astype(np.int64) for k, v in st["prep_g2"].items()}
-        return cls(plan, device=device, subgroup_check=subgroup_check, _state=st)
+        return cls(plan, device=device, subgroup_check=subgroup_check,
+                   subgroup_rounds=subgroup_rounds, _state=st)
 
     # ------------------------------------------------------------------
     def encode_public_inputs(self, pis) -> np.ndarray:
@@ -265,14 +282,163 @@ class TorchVerifier:
             return np.zeros((0, self.n_pi, FR_SPEC.L), np.int64)
         return np.stack([np.stack([FR_SPEC.encode(v % Q) for v in row]) for row in pis])
 
-    def verify(self, proof_bytes, public_inputs, y_hints=None):
+    def subgroup_weights(self, generator: torch.Generator | None = None):
+        """Fresh per-batch aggregation weights for the "aggregate" mode
+        ((rounds, n_points) int64 on the CPU), or None in other modes."""
+        if self.subgroup_check != "aggregate":
+            return None
+        return tc.subgroup_weights(len(self.layout.point_offsets), self.subgroup_rounds, generator)
+
+    def compute_y_hints(self, proof_bytes) -> np.ndarray:
+        """Host: (B, PLEN) uint8 proofs -> (B, n_points, L) int64 canonical
+        Fp limbs holding a candidate sqrt(x^3 + 4) per compressed proof
+        point. Pure acceleration data: decompression re-checks every hint,
+        and a wrong one can only reject its row. Duplicate proof rows are
+        computed once."""
+        proof_bytes = np.ascontiguousarray(np.asarray(proof_bytes), dtype=np.uint8)
+        offs = list(self.layout.point_offsets.values())
+        uniq, inv = np.unique(proof_bytes, axis=0, return_inverse=True)
+        e = (P + 1) >> 2
+        cache = np.zeros((uniq.shape[0], len(offs), FP_SPEC.L), np.int64)
+        for u in range(uniq.shape[0]):
+            row = uniq[u].tobytes()
+            for i, off in enumerate(offs):
+                x = int.from_bytes(bytes([row[off] & 0x1F]) + row[off + 1 : off + 48], "big") % P
+                rhs = (x * x % P * x + 4) % P
+                cache[u, i] = FP_SPEC.encode(pow(rhs, e, P))
+        return cache[inv.reshape(-1)]
+
+    def verify(self, proof_bytes, public_inputs, y_hints=None,
+               generator: torch.Generator | None = None):
         """proof_bytes (B, PLEN) uint8, public_inputs (B, n_pi, 17) canonical
-        Fr limbs (numpy or tensors) -> (B,) bool tensor on the device."""
-        if y_hints is not None:
-            raise NotImplementedError(f"y-hinted decompression is not ported yet ({_NEXT_SLICE})")
-        el, er, all_valid = self.core(proof_bytes, public_inputs)
+        Fr limbs (numpy or tensors) -> (B,) bool tensor on the device.
+
+        y_hints: optional (B, n_points, 25) UNTRUSTED candidate y-coordinates
+        (compute_y_hints): decompression checks y^2 == x^3 + 4 and the sign
+        instead of running the sqrt ladder; a wrong hint can only reject.
+        generator: randomness of the aggregate subgroup test's fresh weights
+        (the OS's randomness when omitted)."""
+        el, er, all_valid = self.core(proof_bytes, public_inputs, y_hints,
+                                      self.subgroup_weights(generator))
         ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el, er, self.pair))
         return ok & all_valid
+
+    # -- RLC batched pairing ----------------------------------------------
+    _RLC_RECHECK = 128  # rows exactly re-checked in-flight per RLC batch
+
+    def verify_rlc(self, proof_bytes, public_inputs, y_hints=None, group: int = 8,
+                   generator: torch.Generator | None = None) -> np.ndarray:
+        """Batch verification with ONE pairing check per `group` proofs.
+
+        Each group's pairing sides are aggregated with fresh random 128-bit
+        weights: e(sum_b w_b el_b, sG2) e(sum_b w_b er_b, G2) == 1 holds for
+        honest rows and fails except with probability <= group / 2^128 when
+        any row's own equation fails. The per-row transcript, scalar work and
+        decompression validity stay exact per proof, and the rows of a
+        failing group are re-checked one by one, so verdicts are exact per
+        row. Returns (B,) bool verdicts (numpy). Requires B % group == 0."""
+        weights = self.rlc_weights(torch.as_tensor(proof_bytes).shape[0], generator)
+        out = self.verify_rlc_device(proof_bytes, public_inputs, weights, y_hints, group=group,
+                                     generator=generator)
+        return self.rlc_finalize(*out)
+
+    def rlc_weights(self, B: int, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Fresh nonzero 128-bit RLC weights (bit 0 set) as (B, 17) canonical
+        Fr limbs, int64 on the CPU: from `generator` when given, else from
+        the OS's randomness."""
+        if generator is not None:
+            w = torch.randint(0, 1 << 16, (B, 8), generator=generator, dtype=torch.int64)
+        else:
+            w = torch.from_numpy(np.frombuffer(secrets.token_bytes(16 * B), dtype="<u2")
+                                 .astype(np.int64).reshape(B, 8))
+        w[:, 0] |= 1
+        return torch.nn.functional.pad(w, (0, FR_SPEC.L - 8))
+
+    def verify_rlc_device(self, proof_bytes, public_inputs, weights, y_hints=None, *,
+                          group: int = 8, generator: torch.Generator | None = None):
+        """The device leg of verify_rlc: returns (verdicts, n_suspects,
+        group_ok, all_valid, el, er, R), R the in-flight re-check width.
+        `verdicts` is already exact whenever n_suspects <= R; rlc_finalize
+        handles the overflow."""
+        B = torch.as_tensor(proof_bytes).shape[0]
+        if group < 1 or B % group:
+            raise ValueError(f"batch {B} is not a multiple of group {group}")
+        el, er, all_valid = self.core(proof_bytes, public_inputs, y_hints,
+                                      self.subgroup_weights(generator))
+        el_g, er_g = self._stage("rlc_msm", lambda: self._agg(el, er, all_valid, weights, group))
+        group_ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el_g, er_g, self.pair))
+        R = min(self._RLC_RECHECK, B)
+        verdicts0, n_sus, group_ok, idx, live, el_s, er_s = self._post(
+            group_ok, all_valid, el, er, group, R)
+        # JaxVerifier gates the re-check pairing on the device (lax.cond);
+        # here one host read of the suspect count skips it on clean batches
+        if int(n_sus):
+            row_ok = self._stage("recheck",
+                                 lambda: cuda_pairing.pairing_check(el_s, er_s, self.pair))
+            verdicts = self._final(verdicts0, idx, live, row_ok)
+        else:
+            verdicts = verdicts0
+        return verdicts, n_sus, group_ok, all_valid, el, er, R
+
+    def rlc_finalize(self, verdicts, n_sus, group_ok, all_valid, el, er, R: int) -> np.ndarray:
+        """Host tail of verify_rlc: exact verdicts out. Only when more than
+        R rows sat in failing groups (a flood of bad proofs) does this
+        re-check every suspect row, in one more pairing call."""
+        verdicts = verdicts.cpu().numpy()
+        if int(n_sus) > R:
+            group = verdicts.shape[0] // group_ok.shape[0]
+            group_ok = group_ok.cpu().numpy()
+            all_valid = all_valid.cpu().numpy()
+            verdicts = np.repeat(group_ok, group) & all_valid
+            suspects = np.nonzero(np.repeat(~group_ok, group) & all_valid)[0]
+            verdicts[suspects] = self._recheck_rows(el, er, suspects)
+        return verdicts
+
+    def _agg(self, el, er, all_valid, weights, group: int):
+        """Per-group RLC aggregation: (B, 3, L) pairing sides -> two (G, 3, L)
+        aggregates. Rows with invalid encodings are already rejected; a zero
+        weight keeps them from failing their group-mates' aggregate. One MSM
+        kernel call (K = group) aggregates both sides, stacked on the batch
+        dim."""
+        B = el.shape[0]
+        G = B // group
+        w = torch.where(all_valid[:, None], torch.as_tensor(weights, device=el.device), 0)
+        both = torch.cat([el.reshape(G, group, 3, FP_SPEC.L),
+                          er.reshape(G, group, 3, FP_SPEC.L)]).contiguous()
+        w2 = torch.cat([w.reshape(G, group, FR_SPEC.L)] * 2).contiguous()
+        self.msm_term_counts.append(group)
+        agg = cuda_curve.msm(both, w2)
+        return agg[:G].contiguous(), agg[G:].contiguous()
+
+    def _post(self, group_ok, all_valid, el, er, group: int, R: int):
+        """Gather up to R rows of failing groups for the exact re-check; the
+        slots past the suspect count carry the identity pair (trivially
+        true). Returns (verdicts0, n_sus, group_ok, idx, live, el_s, er_s):
+        slot j re-checks row idx[j] where live[j]."""
+        suspect = (~group_ok).repeat_interleave(group) & all_valid
+        n_sus = suspect.sum()
+        # suspects first, in row order (a stable sort, no host sync)
+        idx = torch.argsort((~suspect).to(torch.uint8), stable=True)[:R]
+        live = torch.arange(R, device=el.device) < n_sus
+        el_s = torch.where(live[:, None, None], el[idx], self.ident).contiguous()
+        er_s = torch.where(live[:, None, None], er[idx], self.ident).contiguous()
+        verdicts0 = group_ok.repeat_interleave(group) & all_valid
+        return verdicts0, n_sus, group_ok, idx, live, el_s, er_s
+
+    @staticmethod
+    def _final(verdicts0, idx, live, row_ok):
+        """Scatter the re-check verdicts of the live slots only (the others
+        would alias rows that were not re-checked)."""
+        verdicts = verdicts0.clone()
+        verdicts[idx[live]] = row_ok[live]
+        return verdicts
+
+    def _recheck_rows(self, el, er, suspects) -> np.ndarray:
+        """Exact per-row pairing checks of the suspect row indices (the
+        kernel takes any number of rows)."""
+        idx = torch.as_tensor(suspects, dtype=torch.int64, device=el.device)
+        return cuda_pairing.pairing_check(el[idx].contiguous(), er[idx].contiguous(),
+                                          self.pair).cpu().numpy()
 
     # ------------------------------------------------------------------
     def _stage(self, name, fn):
@@ -312,9 +478,16 @@ class TorchVerifier:
             buf[:, pos : pos + 32] = self._pi_bytes(pis[:, i, :])
         return buf.contiguous()
 
-    def core(self, proof, pis):
+    def core(self, proof, pis, y_hints=None, sub_weights=None):
         """proof bytes -> (el, er, all_valid): the pairing sides and the
-        per-row decompression validity."""
+        per-row validity of the proof's point encodings (decompression and,
+        unless the mode is "off", subgroup membership). sub_weights: the
+        aggregate mode's (rounds, n_points) weights (subgroup_weights())."""
+        if self.subgroup_check == "aggregate" and sub_weights is None:
+            # refuse a silent downgrade of the default strict mode
+            raise ValueError("subgroup_check='aggregate' requires sub_weights: pass "
+                             "verifier.subgroup_weights() (fresh per batch), or construct "
+                             "TorchVerifier(subgroup_check='off'/'exact')")
         plan, lay, vk = self.plan, self.layout, self.plan.vk
         dev = self.device
         proof = torch.as_tensor(proof, device=dev)
@@ -344,13 +517,35 @@ class TorchVerifier:
 
         point_names = list(lay.point_offsets)
 
-        def decompress():
-            sqrt_fn = lambda rhs: cuda_field.fp_pow(rhs.contiguous(), (FP_SPEC.N + 1) >> 2)  # noqa: E731
-            return tc.decompress(proof[:, self._pt_idx], sqrt_fn=sqrt_fn)
+        hints = None
+        if y_hints is not None:
+            hints = torch.as_tensor(y_hints, device=dev).to(torch.int64).contiguous()
+            if hints.shape != (B, len(point_names), FP_SPEC.L):
+                raise ValueError(f"y_hints must be (B, {len(point_names)}, {FP_SPEC.L}), "
+                                 f"got {tuple(hints.shape)}")
 
-        pts, pt_valid = self._stage("decompress", decompress)
+        def decompress():
+            pt_raw = proof[:, self._pt_idx]
+            if hints is None:
+                sqrt_fn = lambda rhs: cuda_field.fp_pow(rhs.contiguous(), (FP_SPEC.N + 1) >> 2)  # noqa: E731
+                return (*tc.decompress(pt_raw, sqrt_fn=sqrt_fn), None)
+            if self.subgroup_check == "aggregate":
+                # the fused kernel: the subgroup test on the points just decoded
+                return cuda_curve.decompress_hinted(pt_raw, hints, sub_weights)
+            return (*cuda_curve.decompress_hinted(pt_raw, hints), None)
+
+        pts, pt_valid, sub_ok = self._stage("decompress", decompress)
         points = {n: pts[:, i] for i, n in enumerate(point_names)}
         all_valid = pt_valid.all(-1)
+        if self.subgroup_check == "exact":
+            # the per-point test in plain torch (the JAX package has no
+            # kernel for it either)
+            all_valid = all_valid & self._stage("subgroup", lambda: tc.subgroup_check(pts).all(-1))
+        elif self.subgroup_check == "aggregate":
+            if sub_ok is None:
+                sub_ok = self._stage("subgroup", lambda: cuda_curve.aggregate_subgroup_check(
+                    pts.contiguous(), sub_weights))
+            all_valid = all_valid & sub_ok
 
         set_points, mo_invs, vanishing_s, xn = self._stage(
             "fr_side", lambda: self._scalar_side(B, ch, scalars, pis))

@@ -24,11 +24,13 @@ from pathlib import Path
 
 from ..refimpl.field import BLS_X, P, Q
 from . import tower
+from .curve import BETA
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu")
-HEADERS = ("field.cuh", "tower.cuh")
+SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
+           "subgroup.cu")
+HEADERS = ("field.cuh", "tower.cuh", "curve.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
@@ -42,6 +44,8 @@ SIGNATURES = {
     "ph2_transcript": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
     "ph2_msm": (_P, _P, _P, _I, _I, _P),
     "ph2_pairing_check": (_P, _P, _P, _P, _I, _I, _P),
+    "ph2_decompress": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ph2_subgroup": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -64,7 +68,9 @@ def field_consts_header() -> str:
     N (one in the kernel domain), and the two boundary factors that move a
     value between the port's 16-bit-limb domain (R = 2^(16 L)) and the
     kernels' 32-bit-word domain (R = 2^(32 W)); plus the Frobenius gammas
-    and the Fermat exponent p - 2 for the pairing."""
+    and the Fermat exponent p - 2 for the pairing; the curve constants of
+    hinted decompression (R^2 mod p, b = 4, (p + 1) / 2 as plain words) and
+    the cube root of unity beta of the subgroup test."""
     out = ["// generated by plutus_halo2_tpu_torch/ops/_build.py — do not edit\n",
            "#pragma once\n#include <cstdint>\n"]
     for name, mod, nw, l16 in (("FP", P, 12, 25), ("FR", Q, 8, 17)):
@@ -83,6 +89,10 @@ def field_consts_header() -> str:
             flat += kernel_fp(c0) + kernel_fp(c1)
     out.append(_arr("FP_GAMMA", flat))  # (3, 6, 2, 12)
     out.append(_arr("FP_PM2", words(P - 2, 12)))
+    out.append(_arr("FP_R2K", kernel_fp(1 << 384)))
+    out.append(_arr("FP_B4", kernel_fp(4)))
+    out.append(_arr("FP_HALF", words((P + 1) >> 1, 12)))
+    out.append(_arr("FP_BETA", kernel_fp(BETA)))
     out.append(f"static constexpr uint64_t BLS_X_ABS = 0x{BLS_X:016x}ull;\n")
     return "".join(out)
 
@@ -192,9 +202,12 @@ def stream_ptr():
 
 
 # Threads per block of the one-thread-per-item kernels (transcript, pow,
-# pairing), read at each launch: within 6 % of the fastest size for each
-# of them at the verifier's shapes on an H100 (PERF.md; python3 -m
-# plutus_halo2_tpu_torch.block_sweep).
+# pairing, unfused decompress), read at each launch: within 6 % of the
+# fastest size for each of them at the verifier's shapes on an H100
+# (PERF.md; python3 -m plutus_halo2_tpu_torch.block_sweep). The row-layout
+# kernels (fused decompress, subgroup) put max(1, BLOCK_THREADS // KP) rows
+# of KP lanes in a block, KP the row's point count rounded up to a power of
+# two.
 BLOCK_THREADS = 64
 
 

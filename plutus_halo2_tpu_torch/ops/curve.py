@@ -9,15 +9,21 @@ stacked call, so a point add costs four batched Montgomery products.
 
 ``msm`` is the plain version of the MSM kernel (``csrc/msm.cu``): per-point
 4-bit windows over a 16-entry table, then one halving tree over K.
+``aggregate_subgroup_check`` is the plain version of the subgroup kernel
+(``csrc/subgroup.cu``), and ``decompress(..., y_hint=)`` with it the plain
+version of the hinted decompression kernel (``csrc/decompress.cu``).
 """
 
 from __future__ import annotations
 
+import secrets
+
 import numpy as np
 import torch
 
+from ..refimpl.field import BLS_X, P
 from . import limb
-from .limb import FP_SPEC, fp
+from .limb import FP_SPEC, FR_SPEC, fp
 
 _B3 = FP_SPEC.to_mont(12)  # 3*b, b = 4
 _B = FP_SPEC.to_mont(4)
@@ -108,6 +114,17 @@ def is_identity(p):
     return fp.is_zero(p[..., 2, :])
 
 
+def eq(p, q):
+    """Projective equality: cross-multiplied affine comparison, identity-aware."""
+    X1, Y1, Z1 = p.unbind(-2)
+    X2, Y2, Z2 = q.unbind(-2)
+    x1z2, x2z1, y1z2, y2z1 = fp.mul(torch.stack(torch.broadcast_tensors(X1, X2, Y1, Y2), -2),
+                                    torch.stack(torch.broadcast_tensors(Z2, Z1, Z2, Z1), -2)).unbind(-2)
+    inf_p, inf_q = is_identity(p), is_identity(q)
+    both_fin = fp.eq(x1z2, x2z1) & fp.eq(y1z2, y2z1) & ~inf_p & ~inf_q
+    return both_fin | (inf_p & inf_q)
+
+
 def _nibbles_msb_first(scalars):
     """(..., L_fr) 16-bit limbs -> (64, ...) window values, MSB window first.
     Canonical Fr fits 255 bits, so windows beyond 64 are always zero."""
@@ -124,11 +141,13 @@ def _window_table(p):
     return torch.stack(tab, -3)
 
 
-def mul(p, scalars):
+def mul(p, scalars, nwin: int = 64):
     """Batched scalar multiplication: p (..., 3, L) by canonical Fr limbs
-    (..., L_fr)."""
+    (..., L_fr) below 2^(4 nwin). The windows above those are all zero and
+    leave the accumulator at exactly (0 : 1 : 0), so skipping them changes
+    no limb of the result."""
     table = _window_table(p)
-    windows = _nibbles_msb_first(scalars)
+    windows = _nibbles_msb_first(scalars)[64 - nwin :]
     acc = identity(p.shape[:-2], p.device)
     for w in windows:
         acc = double(double(double(double(acc))))
@@ -152,10 +171,10 @@ def tree_sum(points):
     return t[..., 0, :, :]
 
 
-def msm(points, scalars):
+def msm(points, scalars, nwin: int = 64):
     """Batched multi-scalar multiplication over a static K dim:
     points (..., K, 3, L), scalars (..., K, L_fr) canonical -> (..., 3, L)."""
-    return tree_sum(mul(points, scalars))
+    return tree_sum(mul(points, scalars, nwin))
 
 
 def to_affine(p):
@@ -168,6 +187,103 @@ def to_affine(p):
 
 
 # ---------------------------------------------------------------------------
+# subgroup membership (ops/curve.py:248-360 of the JAX package)
+# ---------------------------------------------------------------------------
+# The reference's bls12_381_G1_uncompress rejects points outside the q-order
+# subgroup G1. Criterion (Bowe 2019 / Scott 2021): P in G1 <=> phi(P) ==
+# [z^2 - 1] P, phi(x, y) = (beta x, y), z the BLS parameter and beta the
+# cube root of unity paired with lambda = z^2 - 1.
+
+def _derive_beta() -> int:
+    b = 2
+    while True:
+        c = pow(b, (P - 1) // 3, P)
+        if c != 1:
+            return pow(c, 2, P)  # the root paired with lambda = z^2 - 1
+        b += 1
+
+
+BETA = _derive_beta()
+_BETA_MONT = FP_SPEC.to_mont(BETA)
+_ZBITS = [int(c) for c in bin(BLS_X)[2:]]  # |z| MSB first
+
+
+def _mul_by_z_abs(p):
+    """[|z|]P by double-and-add over the static 64-bit pattern (the JAX
+    package's scan computes the add at every bit and selects it at the set
+    ones; adding only there gives the same limbs)."""
+    acc = identity(p.shape[:-2], p.device)
+    for bit in _ZBITS:
+        acc = double(acc)
+        if bit:
+            acc = add(acc, p)
+    return acc
+
+
+def subgroup_check(p):
+    """(..., 3, L) projective Montgomery points -> (...,) bool: q-order
+    subgroup membership (the identity counts as a member)."""
+    t = _mul_by_z_abs(_mul_by_z_abs(p))  # [z^2]P (the sign squares away)
+    rhs = add(t, neg(p))  # [z^2 - 1]P
+    phi_p = pt(fp.mul(p[..., 0, :], _c(_BETA_MONT, p.device)), p[..., 1, :], p[..., 2, :])
+    return eq(phi_p, rhs) | is_identity(p)
+
+
+# The aggregate form: each row's points are summed with verifier-chosen
+# weights and only the aggregate is tested. Honest rows always pass; a row
+# holding non-subgroup points evades one round with probability <= 1/3 over
+# the weights (the order-3 factor of the G1 cofactor binds), `rounds`
+# independent rounds with <= 3^-rounds. The verification equation itself is
+# cofactor-insensitive, so only byte-level accept parity with the
+# reference's uncompress abort is at stake.
+SUBGROUP_WEIGHT_BITS = 16  # [1, 2^16) is exactly uniform mod 3
+DEFAULT_SUBGROUP_ROUNDS = 1  # the one default of every aggregate-mode surface
+
+
+def subgroup_weights(n_points: int, rounds: int = DEFAULT_SUBGROUP_ROUNDS,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+    """Fresh verifier-side aggregation weights: (rounds, n_points) int64 on
+    the CPU, uniform in [1, 2^SUBGROUP_WEIGHT_BITS), shared by every row of
+    a batch. From `generator` when given, else from the OS's randomness."""
+    hi = 1 << SUBGROUP_WEIGHT_BITS
+    if generator is not None:
+        return torch.randint(1, hi, (rounds, n_points), generator=generator, dtype=torch.int64)
+    return torch.tensor([[1 + secrets.randbelow(hi - 1) for _ in range(n_points)]
+                         for _ in range(rounds)], dtype=torch.int64).reshape(rounds, n_points)
+
+
+def check_weights(weights, n_points: int) -> torch.Tensor:
+    """Aggregation weights as a (rounds, n_points) int64 CPU tensor, each in
+    [1, 2^16); raises on anything else (both the kernel and its plain
+    version take only such weights)."""
+    w = torch.as_tensor(weights).cpu()
+    if w.dtype.is_floating_point or w.dtype == torch.bool or w.dim() != 2 \
+            or w.shape[0] < 1 or w.shape[1] != n_points:
+        raise ValueError(f"weights must be (rounds >= 1, {n_points}) integers, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    w = w.to(torch.int64)
+    if bool(((w < 1) | (w >= 1 << SUBGROUP_WEIGHT_BITS)).any()):
+        raise ValueError(f"weights must lie in [1, 2^{SUBGROUP_WEIGHT_BITS})")
+    return w
+
+
+def aggregate_subgroup_check(pts, weights):
+    """pts (B, K, 3, L) projective Montgomery, weights (rounds, K) in
+    [1, 2^16) -> (B,) bool: per-row aggregate membership over all rounds.
+    The weights go through the generic MSM as Fr limbs (4 windows cover
+    them), as the JAX package's aggregate_subgroup_check does."""
+    w = check_weights(weights, pts.shape[-3]).to(pts.device)
+    w_limbs = torch.nn.functional.pad(torch.stack([w & limb.MASK16, w >> 16], -1),
+                                      (0, FR_SPEC.L - 2))
+    ok = None
+    for r in range(w.shape[0]):
+        q = msm(pts, w_limbs[r].expand(*pts.shape[:-2], FR_SPEC.L), nwin=4)
+        ok_r = subgroup_check(q)
+        ok = ok_r if ok is None else ok & ok_r
+    return ok
+
+
+# ---------------------------------------------------------------------------
 # compressed-point decoding (blst conventions, CompressUncompress.hs:51-97)
 # ---------------------------------------------------------------------------
 
@@ -177,11 +293,22 @@ def _bytes_be_to_limbs(b):
     return torch.nn.functional.pad(le[..., 0] | (le[..., 1] << 8), (0, 1))
 
 
-def decompress(comp_bytes, sqrt_fn=None):
+def decompress(comp_bytes, sqrt_fn=None, y_hint=None):
     """Batched G1 decompression: (..., 48) uint8 -> (point (..., 3, L),
     valid (...,) bool). Invalid encodings yield valid=False (the caller folds
     this into the verdict; the on-chain builtin would abort the script).
-    sqrt_fn optionally overrides the x^((p+1)/4) ladder (the pow kernel)."""
+    sqrt_fn optionally overrides the x^((p+1)/4) ladder (the pow kernel).
+
+    y_hint optionally supplies an UNTRUSTED candidate root ((..., L) 16-bit
+    limbs, e.g. from TorchVerifier.compute_y_hints): the y^2 == x^3 + 4
+    check rejects non-roots and the sign logic normalizes whichever root was
+    given, so a wrong hint can only reject. The hint is read mod 2^384 (its
+    low 24 limbs, each mod 2^16), as the hinted decompression kernel reads
+    it (the JAX package's make_decompress_kernel does the same). This
+    differs from the JAX package's jc.decompress, which reads all 25 limbs,
+    only for a hint >= 2^384; such a hint is never a canonical root, and
+    both readings stay sound: a truncated hint is a root only if it is the
+    true one."""
     flags = comp_bytes[..., 0].to(torch.int64)
     comp_flag = (flags & 0x80) != 0
     inf_flag = (flags & 0x40) != 0
@@ -197,7 +324,13 @@ def decompress(comp_bytes, sqrt_fn=None):
 
     xm = fp.to_mont(x_limbs)
     rhs = fp.add(fp.mul(fp.mul(xm, xm), xm), _c(_B, dev))
-    y = sqrt_fn(rhs) if sqrt_fn is not None else fp.pow(rhs, (FP_SPEC.N + 1) >> 2)
+    if y_hint is not None:
+        hint = torch.as_tensor(y_hint, device=dev).to(torch.int64)[..., :24] & limb.MASK16
+        y = fp.to_mont(torch.nn.functional.pad(hint, (0, 1)))
+    elif sqrt_fn is not None:
+        y = sqrt_fn(rhs)
+    else:
+        y = fp.pow(rhs, (FP_SPEC.N + 1) >> 2)
     root_ok = fp.eq(fp.mul(y, y), rhs)
 
     # sign: y > -y in the integer sense — compare canonical (non-Montgomery)

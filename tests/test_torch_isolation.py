@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of plutus_halo2_tpu_torch
 and chip_smoke pulls in neither jax nor the JAX package; its entry point
-runs on the card unless asked for the CPU and raises without one; modes
-that are not ported yet raise instead of silently downgrading."""
+runs on the card unless asked for the CPU and raises without one; the
+subgroup modes and their settings, and the arguments the verifier refuses
+instead of silently downgrading."""
 
 import os
 import subprocess
@@ -60,23 +61,48 @@ def test_default_device_is_cuda_and_raises_without_one(plan, monkeypatch):
     assert TorchVerifier(plan, device="cpu", subgroup_check="off").device.type == "cpu"
 
 
-@pytest.mark.parametrize("mode", ["aggregate", "exact", True])
-def test_unported_subgroup_modes_raise(plan, mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchVerifier(plan, device="cpu", subgroup_check=mode)
+def test_default_mode_is_aggregate(plan):
+    v = TorchVerifier(plan, device="cpu")
+    assert (v.subgroup_check, v.subgroup_rounds) == ("aggregate", 1)
+    assert v.subgroup_weights(torch.Generator().manual_seed(0)).shape == (1, 10)
 
 
-def test_default_mode_is_aggregate_and_raises(plan):
-    with pytest.raises(NotImplementedError, match="aggregate"):
-        TorchVerifier(plan, device="cpu")
+@pytest.mark.parametrize("mode,name", [(True, "exact"), (False, "off"), ("exact", "exact"),
+                                       ("off", "off")])
+def test_subgroup_mode_names(plan, mode, name):
+    v = TorchVerifier(plan, device="cpu", subgroup_check=mode)
+    assert v.subgroup_check == name
+    assert v.subgroup_weights() is None
 
 
-def test_y_hints_raise(plan):
+@pytest.mark.parametrize("kwargs", [{"subgroup_check": "strict"}, {"subgroup_rounds": 0}])
+def test_bad_subgroup_settings_raise(plan, kwargs):
+    with pytest.raises(ValueError):
+        TorchVerifier(plan, device="cpu", **kwargs)
+
+
+def _zeros(v, B):
+    proof = torch.zeros((B, v.layout.proof_len), dtype=torch.uint8)
+    return proof, torch.zeros((B, v.n_pi, 17), dtype=torch.int64)
+
+
+def test_core_in_aggregate_mode_needs_weights(plan):
+    v = TorchVerifier(plan, device="cpu")
+    with pytest.raises(ValueError, match="sub_weights"):
+        v.core(*_zeros(v, 2))
+
+
+def test_y_hints_of_the_wrong_shape_raise(plan):
     v = TorchVerifier(plan, device="cpu", subgroup_check="off")
-    proof = torch.zeros((1, v.layout.proof_len), dtype=torch.uint8)
-    pis = torch.zeros((1, v.n_pi, 17), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        v.verify(proof, pis, y_hints=torch.zeros((1, 10, 25), dtype=torch.int64))
+    with pytest.raises(ValueError, match="y_hints"):
+        v.core(*_zeros(v, 2), y_hints=torch.zeros((2, 9, 25), dtype=torch.int64))
+
+
+@pytest.mark.parametrize("B,group", [(6, 4), (8, 0)])
+def test_verify_rlc_group_must_divide_batch(plan, B, group):
+    v = TorchVerifier(plan, device="cpu")
+    with pytest.raises(ValueError, match="group"):
+        v.verify_rlc(*_zeros(v, B), group=group)
 
 
 def test_wrappers_reject_cpu_launch_paths_for_bad_cuda_inputs():

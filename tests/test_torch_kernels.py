@@ -1,6 +1,8 @@
 """Kernel-vs-plain parity of the CUDA kernels at small, ragged shapes (any
 B, any K): each kernel's wrapper on CUDA tensors against its plain PyTorch
-version on the same inputs, exactly (the MSM in affine coordinates).
+version on the same inputs, exactly (the MSM in affine coordinates; the
+aggregate subgroup verdicts on rows whose points all decode), and the
+verifier's modes and verify_rlc on the card against the CPU.
 
 These need a CUDA device and nvcc (sm_90a) and skip without them; run them
 on the GPU machine with ``python -m pytest tests/test_torch_kernels.py -m gpu
@@ -106,14 +108,10 @@ def test_pairing_kernel(dev):
     assert got[0].item()
 
 
-def test_verifier_on_gpu_matches_cpu(dev):
-    """The whole slice on the card (every stage through its kernel) against
-    the same verifier on the CPU (every stage through its plain version), at
-    a small ragged batch of the committed simple_mul artifacts."""
+def _artifacts():
     import os
 
     from plutus_halo2_tpu_torch.models.circuits import SimpleMulCircuit
-    from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
     from plutus_halo2_tpu_torch.refimpl.keygen import plan_from_vk
     from plutus_halo2_tpu_torch.utils.serialization import parse_public_inputs, vk_from_json
 
@@ -127,14 +125,33 @@ def test_verifier_on_gpu_matches_cpu(dev):
     pis = parse_public_inputs(read("public_input.hex"))
     good = np.frombuffer(bytes.fromhex(read("proof.hex")), np.uint8)
     bad = np.frombuffer(bytes.fromhex(read("proof_invalid.hex")), np.uint8)
+    return plan, pis, good, bad
+
+
+@pytest.mark.parametrize("mode,hinted", [("off", False), ("aggregate", True), ("aggregate", False),
+                                         ("exact", True)])
+def test_verifier_on_gpu_matches_cpu(dev, mode, hinted):
+    """The whole slice on the card (every stage through its kernel) against
+    the same verifier on the CPU (every stage through its plain version), at
+    a small ragged batch of the committed simple_mul artifacts, in each
+    subgroup mode, with and without y-hints (one of them corrupted)."""
+    from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
+
+    plan, pis, good, bad = _artifacts()
     batch = np.stack([good, bad, good, good, bad]).copy()
     batch[2, 100] ^= 0x40
     out = {}
     for d in (dev, torch.device("cpu")):
-        v = TorchVerifier(plan, device=d, subgroup_check="off")
-        el, er, valid = v.core(batch, v.encode_public_inputs([pis] * len(batch)))
+        v = TorchVerifier(plan, device=d, subgroup_check=mode)
+        hints = None
+        if hinted:
+            hints = v.compute_y_hints(batch)
+            hints[3, 4, 0] ^= 1
+        w = v.subgroup_weights(torch.Generator().manual_seed(3))
+        el, er, valid = v.core(batch, v.encode_public_inputs([pis] * len(batch)), hints, w)
         out[d.type] = (tc.to_affine(el), tc.to_affine(er), valid,
-                       v.verify(batch, v.encode_public_inputs([pis] * len(batch))))
+                       v.verify(batch, v.encode_public_inputs([pis] * len(batch)), hints,
+                                torch.Generator().manual_seed(3)))
     g, c = out["cuda"], out["cpu"]
     assert torch.equal(g[2].cpu(), c[2])
     # pairing sides agree on rows whose points all decompressed: the complete
@@ -145,7 +162,117 @@ def test_verifier_on_gpu_matches_cpu(dev):
     assert ok.any()
     for a, b in zip(g[0] + g[1], c[0] + c[1]):
         assert torch.equal(a.cpu()[ok], b[ok])
-    assert g[3].cpu().tolist() == c[3].tolist() == [True, False, False, True, False]
+    assert g[3].cpu().tolist() == c[3].tolist() == [True, False, False, not hinted, False]
+
+
+def test_verify_rlc_on_gpu_matches_cpu(dev):
+    """verify_rlc (group 4, the default mode with hints) on the card equals
+    the CPU's verdicts, with failing groups re-checked in flight and, at a
+    re-check width of 2, on the host."""
+    from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
+
+    plan, pis, good, bad = _artifacts()
+    batch = np.stack([good] * 8).copy()
+    batch[2, 100] ^= 0x40
+    batch[5] = bad
+    want = [True, True, False, True, True, False, True, True]
+    for recheck in (128, 2):
+        got = {}
+        for d in (dev, torch.device("cpu")):
+            v = TorchVerifier(plan, device=d)
+            v._RLC_RECHECK = recheck
+            got[d.type] = v.verify_rlc(batch, v.encode_public_inputs([pis] * 8),
+                                       v.compute_y_hints(batch), group=4,
+                                       generator=torch.Generator().manual_seed(9)).tolist()
+        assert got["cuda"] == got["cpu"] == want
+
+
+def _nonsubgroup_point():
+    x = 100
+    while True:
+        rhs = (x**3 + 4) % FP_SPEC.N
+        y = pow(rhs, (FP_SPEC.N + 1) >> 2, FP_SPEC.N)
+        if y * y % FP_SPEC.N == rhs and not rc.g1_in_subgroup((x, y)):
+            return (x, y)
+        x += 1
+
+
+def _encoding_pool():
+    """(encoding, hint, kind) per crafted point: kind "g" an honest G1 point,
+    "o" the identity, "e" a non-subgroup E(Fp) point, "x" invalid."""
+    P = FP_SPEC.N
+    pool = []
+    for k in (3, 5, 7, 11):
+        p = rc.g1_mul(rc.G1_GEN, k)
+        pool.append((rc.g1_compress(p), min(p[1], P - p[1]), "g"))
+        pool.append((rc.g1_compress(p), max(p[1], P - p[1]), "g"))
+    pool.append((bytes([0xC0] + [0] * 47), 0, "o"))
+    e = _nonsubgroup_point()
+    pool.append((rc.g1_compress(e), e[1], "e"))
+    pool.append((bytes([0xC0, 1] + [0] * 46), 0, "x"))  # bad infinity
+    xbig = (P + 2).to_bytes(48, "big")
+    pool.append((bytes([xbig[0] | 0x80]) + xbig[1:], 3, "x"))  # x >= p
+    x1 = (1).to_bytes(48, "big")
+    pool.append((bytes([x1[0] | 0x80]) + x1[1:], 12345, "x"))  # non-square x
+    p = rc.g1_mul(rc.G1_GEN, 13)
+    pool.append((bytes([rc.g1_compress(p)[0] & 0x7F]) + rc.g1_compress(p)[1:], p[1], "x"))
+    pool.append((rc.g1_compress(p), p[1] + 1, "x"))  # wrong hint
+    pool.append((rc.g1_compress(p), p[1] + (7 << 384), "g"))  # oversized hint: read mod 2^384
+    pool.append((rc.g1_compress(p), p[1] + 1 + (7 << 384), "x"))
+    return pool
+
+
+def _grid(B, K, seed, kinds):
+    """A (B, K) grid: row b draws its points from the pool entries of kinds
+    kinds[b % len(kinds)]."""
+    pool = _encoding_pool()
+    rng = np.random.default_rng(seed)
+    raw = np.zeros((B, K, 48), np.uint8)
+    hints = np.zeros((B, K, FP_SPEC.L), np.int64)
+    row_kinds = []
+    for b in range(B):
+        allowed = [i for i, (_e, _h, k) in enumerate(pool) if k in kinds[b % len(kinds)]]
+        pick = rng.choice(allowed, size=K)
+        row_kinds.append([pool[i][2] for i in pick])
+        for k, i in enumerate(pick):
+            raw[b, k] = np.frombuffer(pool[i][0], np.uint8)
+            h = pool[i][1]
+            hints[b, k] = [(h >> (16 * j)) & 0xFFFF for j in range(FP_SPEC.L)]
+    return raw, hints, row_kinds
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33)])
+@pytest.mark.parametrize("rounds", [None, 1, 2])
+def test_decompress_kernel(dev, B, K, rounds):
+    raw, hints, kinds = _grid(B, K, 100 * B + K, ["go", "goe", "gox", "goex"])
+    raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
+    w = None if rounds is None else torch.randint(1, 1 << 16, (rounds, K),
+                                                   generator=torch.Generator().manual_seed(K))
+    got = cuda_curve.decompress_hinted(raw_t, hints_t, w)
+    want = cuda_curve.decompress_hinted_plain(raw_t, hints_t, w)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].cpu().tolist() == [[k != "x" for k in row] for row in kinds]
+    if rounds is not None:
+        all_valid = got[1].all(-1)
+        assert torch.equal(got[2][all_valid], want[2][all_valid])
+        assert torch.equal(got[2] & all_valid, want[2] & all_valid)
+        member = torch.tensor(["e" not in row for row in kinds], device=dev)
+        assert torch.equal(got[2][all_valid], member[all_valid])
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33)])
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_subgroup_kernel(dev, B, K, rounds):
+    raw, hints, kinds = _grid(B, K, 7 * B + K, ["go", "goe", "o", "e"])
+    pts, valid = cuda_curve.decompress_hinted_plain(torch.from_numpy(raw), torch.from_numpy(hints))
+    assert bool(valid.all())
+    # another projective representative of every point: (sX : sY : sZ)
+    s = torch.from_numpy(FP_SPEC.to_mont(0xC0FFEE))
+    pts = tc.fp.mul(pts, s).to(dev).contiguous()
+    w = torch.randint(1, 1 << 16, (rounds, K), generator=torch.Generator().manual_seed(B))
+    got = cuda_curve.aggregate_subgroup_check(pts, w)
+    assert torch.equal(got, cuda_curve.aggregate_subgroup_check_plain(pts, w))
+    assert got.cpu().tolist() == ["e" not in row for row in kinds]
 
 
 def test_kernel_waits_for_queued_torch_work(dev):

@@ -3,7 +3,8 @@
 verifier and the JAX verifier, from the committed simple_mul artifacts:
 the honest proof is accepted, its committed tampered twin and a bit-flipped
 copy are rejected, row by row; the host constants equal JaxVerifier's limb
-for limb, and a verifier built from JaxVerifier's constants agrees."""
+for limb, and a verifier built from JaxVerifier's constants, in its default
+mode, agrees."""
 
 import os
 
@@ -64,7 +65,7 @@ def test_accepts_honest_rejects_tampered_rowwise(artifacts, own_verdicts):
 
 def test_from_jax_state(artifacts, own_verdicts):
     plan, jplan, batch, pis = artifacts
-    jv = JaxVerifier(jplan, use_pallas=False, subgroup_check="off")
+    jv = JaxVerifier(jplan, use_pallas=False)  # the default (aggregate) mode
     state = {k: getattr(jv, k) for k in STATE_KEYS}
     mine = host_state(plan)
     for key in STATE_KEYS:
@@ -76,7 +77,9 @@ def test_from_jax_state(artifacts, own_verdicts):
         else:
             assert np.array_equal(a, np.asarray(b).astype(np.int64)), key
     tv = TorchVerifier.from_jax_state(plan, state, device="cpu")
-    got = tv.verify(batch, tv.encode_public_inputs([pis] * len(batch))).tolist()
+    assert (tv.subgroup_check, tv.subgroup_rounds) == (jv.subgroup_check, jv.subgroup_rounds)
+    got = tv.verify(batch, tv.encode_public_inputs([pis] * len(batch)),
+                    generator=torch.Generator().manual_seed(1)).tolist()
     assert got == own_verdicts[0]
 
 
@@ -104,3 +107,27 @@ def test_core_matches_jax_verifier(artifacts):
     assert valid.tolist() == np.asarray(jvalid).tolist()
     assert tv.verify(rows, tv.encode_public_inputs([pis] * 2)).tolist() == \
         np.asarray(jv.verify(rows, jpis)).tolist() == [True, False]
+
+
+@pytest.mark.slow
+def test_core_default_mode_matches_jax_verifier(artifacts):
+    """The default mode (y-hints, the aggregate subgroup test) limb for limb
+    against the JAX verifier's XLA path, the same hints and weights, with a
+    corrupted hint on the second row and the bit-flipped row third (its
+    JAX compile takes minutes)."""
+    from plutus_halo2_tpu.ops import curve as jc
+
+    plan, jplan, batch, pis = artifacts
+    rows = batch[[0, 0, 2, 0]]
+    jv = JaxVerifier(jplan, use_pallas=False)
+    tv = TorchVerifier(plan, device="cpu")
+    hints = jv.compute_y_hints(rows)
+    hints[1, 2, 0] ^= 1
+    w = jc.subgroup_weights(10, rng=np.random.default_rng(5))
+    jpis = jv.encode_public_inputs([pis] * 4)
+    jel, jer, jvalid = jv._prog("core", jv._core_impl)(rows, jpis, y_hints=hints, sub_weights=w)
+    el, er, valid = tv.core(rows, tv.encode_public_inputs([pis] * 4), hints.astype(np.int64), w)
+    assert valid.tolist() == np.asarray(jvalid).tolist() == [True, False, False, True]
+    ok = valid.numpy()
+    assert np.array_equal(el.numpy()[ok], np.asarray(jel).astype(np.int64)[ok])
+    assert np.array_equal(er.numpy()[ok], np.asarray(jer).astype(np.int64)[ok])
