@@ -6,23 +6,30 @@
 Drives the port's main path — ``TorchVerifier.verify()`` of the simple_mul
 circuit (halo2-book KZG) in its default mode (y-hints, the aggregate
 subgroup test fused into hinted decompression), the modes beside it,
-``verify_rlc`` and the serving loop, at the headline batch B = 1024 —
-through its hand-written CUDA kernels, in phases:
+``verify_rlc`` and the serving loop, at the headline batch B = 1024 — and
+the probe path (the tensor-core probe and the stage probe) through their
+hand-written CUDA kernels, in phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
   2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
-     PyTorch product on 2^16 random canonical pairs (exactly equal);
-  4. kernels: transcript, Fr pow, Fp pow, MSM, pairing, hinted
-     decompression (fused with the subgroup test at 1 round, and unfused)
-     and the aggregate subgroup test (1 and 2 rounds) against their plain
+     PyTorch product on 2^16 random canonical pairs (exactly equal), the Fp
+     kernel timed beside its bound;
+  4. kernels: transcript, Fr pow, Fp pow, MSM (at 5-bit windows, and at
+     the stage probe's 4), pairing, hinted decompression (fused with the
+     subgroup test at 1 round, and unfused) and the aggregate subgroup
+     test (1 and 2 rounds) against their plain
      PyTorch versions at the main path's shapes (exactly equal; the MSM in
      affine coordinates; the pairing on 1024 distinct checks built from the
      slice's pairing sides, half of them true; decompression on the proof's
      points and crafted encodings, its subgroup verdicts on the rows whose
-     points all decode), with CUDA-event times and the least time the
-     functions' operations need;
+     points all decode); the three tensor-core probe kernels (int8 product,
+     int8 and bf16 200-step chains) on the JAX probe's inputs at B = 1024
+     and at B = 1, 17, 128, bit for bit, the two chains equal; with
+     CUDA-event times and the least time the functions' operations need
+     (the probe kernels' at the tensor cores' peak rates), and
+     ``torch._int_mm`` timed beside the int8 product;
   5. the paths, each on B = 1024 rows: a mixed batch of the committed
      simple_mul proof, its committed tampered twin, one bit-flipped row, one
      row with a corrupted proof scalar, one row whose first advice
@@ -36,7 +43,14 @@ through its hand-written CUDA kernels, in phases:
      the "launches" of the kernels line sum these first calls);
   6. serving: a VerificationService (batch 1024, RLC group 8) answers 1100
      submissions, one full and one padded batch, and every future must
-     resolve to its expected verdict.
+     resolve to its expected verdict;
+  7. the probe path, launch counts set to 0 before it and read after it:
+     ``tools.mma_probe`` at B = 1024 and ``tools.perf_probe`` at B = 256 on
+     the stages mul sqrtp msmp msmp5 subk pairingp verifyh, each checking
+     its own results, the verifyh stage traced into ``chiprun_out/``; every
+     kernel must launch;
+  8. trace: one default-mode ``verify()`` at B = 1024 under
+     ``torch.profiler``, and the share of it in which the card was busy.
 
 Prints one ``{"kernels": [...]}`` line, then the card line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -61,6 +75,10 @@ SEED = 20261016
 # word product is counted as two such operations (low and high halves)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
+# dense tensor-core peaks of one H100 SXM (NVIDIA's data sheet)
+TC_INT8_OPS_PER_S = 1979e12
+TC_BF16_FLOPS = 989e12
+PROBE_BATCH = 256  # the stage probe's batch: the plain versions on the card are slow
 
 
 def _fail(msg: str):
@@ -81,8 +99,8 @@ def _median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def _bound_ms(int_ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = int_ops / INT32_OPS_PER_S * 1e3
+def _bound_ms(int_ops: float, nbytes: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    t_ops = int_ops / ops_per_s * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -246,12 +264,13 @@ def main() -> int:
     sys.path.insert(0, root)
     from plutus_halo2_tpu_torch.models.circuits import SimpleMulCircuit
     from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
-    from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_pairing
+    from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_pairing
     from plutus_halo2_tpu_torch.ops import curve as tc
     from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, limbs_to_int, window_digits
     from plutus_halo2_tpu_torch.refimpl import curve as rc
     from plutus_halo2_tpu_torch.refimpl.field import BLS_X, Q
     from plutus_halo2_tpu_torch.refimpl.keygen import plan_from_vk
+    from plutus_halo2_tpu_torch.utils.profiling import device_busy_us, device_time_by_name, torch_trace
     from plutus_halo2_tpu_torch.utils.serialization import parse_public_inputs, vk_from_json
 
     dev = torch.device("cuda")
@@ -290,6 +309,18 @@ def main() -> int:
                               dtype=np.uint16).astype(np.int64)
         return torch.from_numpy(limbs.reshape(*shape, spec.L)).to(dev)
 
+    results = {}
+
+    def record(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+        results[name] = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "exact": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+        }
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+        print(f"[kernel] {name}: exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms "
+              f"by {bound[1]}{lib})")
+
     # ---- 3. field phase --------------------------------------------------
     for spec, kern in ((FP_SPEC, cuda_field.fp_mont_mul), (FR_SPEC, cuda_field.fr_mont_mul)):
         a, b = rand_canon(spec, (1 << 16,)), rand_canon(spec, (1 << 16,))
@@ -300,6 +331,11 @@ def main() -> int:
             bad = int((got != want).any(-1).sum())
             _fail(f"{spec.name} mont_mul kernel differs from the plain product on {bad} of 65536")
         print(f"[field] {spec.name} mont_mul kernel == plain on 65536 pairs")
+        if spec is FP_SPEC:  # one CIOS product per pair; each pair read, its product written
+            record("mont_mul", "plutus_halo2_tpu_torch/csrc/field_test.cu", "tests/test_pallas_core.py:139", 0,
+                   _median_ms(lambda: kern(a, b), 20),
+                   _median_ms(lambda: cuda_field.mont_mul_plain(a, b, spec), 5),
+                   _bound_ms(2 * a.shape[0] * _cios_products(12), 8 * 3 * a.numel()))
 
     # ---- the slice's inputs --------------------------------------------
     art = os.path.join(root, "examples", "artifacts")
@@ -325,17 +361,6 @@ def main() -> int:
     pis_t = torch.from_numpy(verifier.encode_public_inputs([pis] * B)).to(dev)
 
     # ---- 4. kernel phases ------------------------------------------------
-    results = {}
-
-    def record(name, source, replaces, err, ms, plain_ms, bound):
-        results[name] = {
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "exact": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-        }
-        print(f"[kernel] {name}: exact, {ms:.3f} ms (plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
-              f"by {bound[1]})")
-
     def limb_err(x, y):
         return int((x - y).abs().max()) if x.numel() else 0
 
@@ -392,12 +417,19 @@ def main() -> int:
     live_pts = (pts[:, :, 2].abs().sum(-1) != 0).cpu().tolist()
     sc_ints = [[limbs_to_int(v) for v in row] for row in sc.cpu().numpy()]
     msm_products = sum(_msm_fp_products(s, l) for s, l in zip(sc_ints, live_pts))
+    msm_bound = _bound_ms(2 * msm_products * _cios_products(12),
+                          8 * (pts.numel() + sc.numel() + B * 3 * FP_SPEC.L))
     record("msm", "plutus_halo2_tpu_torch/csrc/msm.cu", "plutus_halo2_tpu/ops/pallas_curve.py:233",
            max(limb_err(ga[0], wa[0]), limb_err(ga[1], wa[1])),
            _median_ms(lambda: cuda_curve.msm(pts, sc), 10),
-           _median_ms(lambda: cuda_curve.msm_plain(pts, sc), 1),
-           _bound_ms(2 * msm_products * _cios_products(12),
-                     8 * (pts.numel() + sc.numel() + B * 3 * FP_SPEC.L)))
+           _median_ms(lambda: cuda_curve.msm_plain(pts, sc), 1), msm_bound)
+    # the stage probe's width (msmp): 64 signed 4-bit windows, 9 table entries
+    g4 = tc.to_affine(cuda_curve.msm(pts, sc, wbits=4))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(g4, wa)):
+        _fail("MSM kernel at wbits 4 differs from the plain MSM (affine)")
+    print(f"[kernel] msm at wbits 4: exact, {_median_ms(lambda: cuda_curve.msm(pts, sc, wbits=4), 10):.3f} ms "
+          f"(the same function: bound {msm_bound[0]:.4f} ms by {msm_bound[1]})")
 
     # pairing: a row of its own per check, built from the slice's honest
     # pairing sides (el, er): rows 0, 2 mod 4 are true pairs ([r]el, [r]er),
@@ -533,17 +565,62 @@ def main() -> int:
                   f"bound {bound[0]:.4f} ms by {bound[1]})")
     print(f"[kernel] subgroup rows: {int(sub_member.sum())} in G1, {int((~sub_member).sum())} not")
 
+    # tensor-core probe kernels on tools/mxu_probe.py's inputs (default_rng(0),
+    # integers in [0, 127)): bit for bit at the probe's width B and at ragged
+    # widths, the bf16 chain equal to the int8 chain
+    def probe_inputs(n):
+        r = np.random.default_rng(0)
+        mat = r.integers(0, 127, (cuda_mma.M, cuda_mma.K)).astype(np.int8)
+        vec = r.integers(0, 127, (cuda_mma.K, n)).astype(np.int8)
+        return torch.from_numpy(mat).to(dev), torch.from_numpy(vec).to(dev)
+
+    for n in (1, 17, 128, B):
+        mat, vec = probe_inputs(n)
+        dot, c8, c16 = cuda_mma.int8_dot(mat, vec), cuda_mma.int8_chain(mat, vec), cuda_mma.bf16_chain(mat, vec)
+        want_dot, want_chain = cuda_mma.int8_dot_plain(mat, vec), cuda_mma.chain_plain(mat, vec)
+        torch.cuda.synchronize()
+        for name, got, want in (("int8_dot", dot, want_dot), ("int8_chain", c8, want_chain),
+                                ("bf16_chain", c16, want_chain)):
+            if not torch.equal(got, want):
+                _fail(f"{name} kernel differs from its plain version at B = {n} on "
+                      f"{int((got != want).sum())} of {want.numel()} values")
+    print("[kernel] probe kernels exact at B = 1, 17, 128, 1024; the bf16 chain equals the int8 chain")
+    steps = cuda_mma.STEPS
+    product_ops = 2 * cuda_mma.M * cuda_mma.K * B
+    # a chain step's output is only the K rows the next step reads; the
+    # kernel computes all M, as the Pallas kernel does, but the bound counts
+    # what the function needs
+    step_ops = 2 * cuda_mma.K * cuda_mma.K * B
+    in_bytes = mat.numel() + vec.numel()
+    if not torch.equal(torch._int_mm(mat, vec), want_dot):  # the yardstick (cuBLASLt), never used by the port
+        _fail("torch._int_mm differs from the exact product")
+    record("int8_dot", "plutus_halo2_tpu_torch/csrc/mma_probe.cu", "tools/mxu_probe.py:46", 0,
+           _median_ms(lambda: cuda_mma.int8_dot(mat, vec), 20),
+           _median_ms(lambda: cuda_mma.int8_dot_plain(mat, vec), 5),
+           _bound_ms(product_ops, in_bytes + 4 * dot.numel(), TC_INT8_OPS_PER_S),
+           _median_ms(lambda: torch._int_mm(mat, vec), 20))
+    for name, kern, line, peak in (("int8_chain", cuda_mma.int8_chain, 101, TC_INT8_OPS_PER_S),
+                                   ("bf16_chain", cuda_mma.bf16_chain, 122, TC_BF16_FLOPS)):
+        ms = _median_ms(lambda: kern(mat, vec), 20)
+        record(name, "plutus_halo2_tpu_torch/csrc/mma_probe.cu", f"tools/mxu_probe.py:{line}", 0, ms,
+               _median_ms(lambda: cuda_mma.chain_plain(mat, vec), 3),
+               _bound_ms(steps * step_ops, in_bytes + 4 * c8.numel(), peak))
+        print(f"[kernel] {name}: {ms * 1e3 / steps:.3f} us per product ({steps} dependent products)")
+
     # ---- 5. the paths ------------------------------------------------------
     counters = {
         "transcript": cuda_blake.transcript_hashes, "pow_fr": cuda_field.fr_pow,
         "pow_fp": cuda_field.fp_pow, "msm": cuda_curve.msm, "pairing": cuda_pairing.pairing_check,
         "decompress": cuda_curve.decompress_hinted, "subgroup": cuda_curve.aggregate_subgroup_check,
+        "mont_mul": cuda_field.fp_mont_mul, "int8_dot": cuda_mma.int8_dot,
+        "int8_chain": cuda_mma.int8_chain, "bf16_chain": cuda_mma.bf16_chain,
     }
     for r in results.values():
         r["launches"] = 0
-    def run_path(name, fn, want, needs):
-        """One path's first call with the launch counts set to 0 before it
-        and read after it; its verdicts against the expected vector."""
+
+    def counted(name, fn, needs):
+        """One run of fn with the launch counts set to 0 before it and read
+        after it; every kernel in `needs` must have launched."""
         for f in counters.values():
             f.launches = 0
         torch.cuda.synchronize()
@@ -551,16 +628,22 @@ def main() -> int:
         out = fn()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        out = out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
         launches = {k: f.launches for k, f in counters.items()}
-        if not np.array_equal(out, want):
-            _fail(f"path {name}: verdicts differ from the expected vector at rows "
-                  f"{np.nonzero(out != want)[0][:10].tolist()}")
         for k in needs:
             if launches[k] <= 0:
                 _fail(f"path {name}: kernel {k} was not launched")
         for k, n in launches.items():
             results[k]["launches"] += n
+        return out, {k: n for k, n in launches.items() if n}, first_s
+
+    def run_path(name, fn, want, needs):
+        """One path's first call, counted; its verdicts against the expected
+        vector."""
+        out, launches, first_s = counted(name, fn, needs)
+        out = out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
+        if not np.array_equal(out, want):
+            _fail(f"path {name}: verdicts differ from the expected vector at rows "
+                  f"{np.nonzero(out != want)[0][:10].tolist()}")
         print(f"[path] {name}: verdicts exact ({int(want.sum())} accept, {int((~want).sum())} reject), "
               f"launches {launches}, first call {first_s:.3f} s")
         return launches
@@ -691,11 +774,42 @@ def main() -> int:
     print(f"[serve] {n_sub + 1} submissions: verdicts exact ({sum(want_s)} accept), "
           f"{svc.dispatches} dispatches, {serve_s:.2f} s")
 
+    # ---- 7. the probe path ------------------------------------------------------
+    from plutus_halo2_tpu_torch.tools import mma_probe, perf_probe
+
+    out_dir = os.path.join(root, "chiprun_out")  # listed in .gitignore
+    probe_stages = ["mul", "sqrtp", "msmp", "msmp5", "subk", "pairingp", "verifyh"]
+    _, launches, first_s = counted("probes", lambda: (
+        mma_probe.main([str(B)]),
+        perf_probe.main([str(PROBE_BATCH), *probe_stages, "--trace", os.path.join(out_dir, "trace_probe")]),
+    ), counters)
+    print(f"[probe] tensor-core probe at B={B} and stage probe at B={PROBE_BATCH} ({' '.join(probe_stages)}): "
+          f"every check exact, launches {launches}, {first_s:.1f} s")
+
+    # ---- 8. trace: the card's busy share of one default-mode batch ----------------
+    wall_u = timed(lambda: default.verify(proof_t, pis_t, hints_t, gen))
+    with torch_trace(os.path.join(out_dir, "trace_verify")) as trace_path:
+        t0 = time.perf_counter()
+        default.verify(proof_t, pis_t, hints_t, gen)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    busy, window = device_busy_us(trace_path)  # raises if the profiler saw no device activity
+    print(f"[trace] device busy share of one default-mode verify() at B={B}: {busy / window:.4f} "
+          f"({busy / 1e3:.3f} ms busy in a {window / 1e3:.3f} ms traced window; the traced call "
+          f"{traced_s * 1e3:.1f} ms, the untraced median of 3 {wall_u * 1e3:.1f} ms, so busy over "
+          f"untraced {busy / 1e3 / (wall_u * 1e3):.4f}; {os.path.relpath(trace_path, root)})")
+    by_name = device_time_by_name(trace_path)
+    print(f"[trace] {sum(c for _n, c, _us in by_name)} device activities of {len(by_name)} kinds; "
+          f"the most time:")
+    for name, count, us in by_name[:8]:
+        print(f"[trace]   {us / 1e3:9.3f} ms in {count:5d} x {name[:100]}")
+
     ecc_after, xid = _health()
     print(f"[health] ECC after the run: {ecc_after} (before: {ecc_before})")
     print(f"[health] Xid: {xid}")
-    print(json.dumps({"kernels": [results[n] for n in ("transcript", "pow_fr", "pow_fp", "msm", "pairing",
-                                                       "decompress", "subgroup")]}))
+    print(json.dumps({"kernels": [results[n] for n in (
+        "transcript", "pow_fr", "pow_fp", "msm", "pairing", "decompress", "subgroup", "mont_mul", "int8_dot",
+        "int8_chain", "bf16_chain")]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

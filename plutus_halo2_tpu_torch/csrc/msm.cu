@@ -12,49 +12,62 @@
 // kernel does: about 14,500 Fp products for K = 16 random scalars (RCB15 add
 // 12, double 8; counted from the data by chip_smoke.py), each a CIOS product
 // of 300 32x32 multiplies. This kernel runs a doubling chain per point:
-// 15*12 + 52*(5*8 + 12) + 3 = 2,887 products per point, ~46,000 per row.
+// at 5-bit windows 15*12 + 52*(5*8 + 12) + 3 = 2,887 products per point,
+// ~46,000 per row; at 4-bit windows 7*12 + 64*(4*8 + 12) + 3 = 2,903.
 //
-// Design: one thread per (row, point) computes s_k P_k with signed 5-bit
-// windows (digits in [-16, 16], the sign a free Y negation) over a table
-// in local memory, using the complete RCB15 formulas (a = 0, b3 = 12), so
-// the identity, a zero scalar and doublings need no branch. Then the row's
-// K partial results are summed by a halving tree in shared memory. Rows of
-// up to 32 points share a warp; any B works (the ragged edge is masked).
+// Design: one thread per (row, point) computes s_k P_k with signed windows
+// of WBITS bits (a template parameter, as the Pallas kernel's wbits: 5 on
+// the verifier's path, 52 windows with digits in [-16, 16] over a 17-entry
+// table; 4 for the stage probe, 64 windows, digits in [-8, 8], 9 entries;
+// the sign a free Y negation) over a table in local memory, using the
+// complete RCB15 formulas (a = 0, b3 = 12), so the identity, a zero scalar
+// and doublings need no branch. Then the row's K partial results are
+// summed by a halving tree in shared memory. Rows of up to 32 points share
+// a warp; any B works (the ragged edge is masked).
 #include "curve.cuh"  // Pt, pt_identity, pt_add, pt_double
 
-constexpr int WBITS = 5, NWIN = 52, TENT = 17;  // 52 * 5 = 260 >= 256 bits
+// signed windows of WBITS bits over a 256-bit scalar (pallas_curve.py:244-245)
+template <int WBITS> struct Win {
+  static_assert(WBITS == 4 || WBITS == 5, "the Pallas kernel's widths");
+  static constexpr int HALF = 1 << (WBITS - 1), TENT = HALF + 1;  // table entries 0..HALF: 9 / 17
+  static constexpr int NWIN = WBITS == 4 ? 64 : 52;                 // 64 * 4 = 256, 52 * 5 = 260 bits
+};
 
-// 5 bits of the 256-bit scalar s starting at bit `pos` (bits >= 256 are 0).
+// WBITS bits of the 256-bit scalar s starting at bit `pos` < 256 (bits >= 256 are 0).
+template <int WBITS>
 DEV int scalar_bits(const uint32_t* s, int pos) {
   const int w = pos >> 5, off = pos & 31;
   uint32_t v = s[w] >> off;
   if (off > 32 - WBITS && w + 1 < 8) v |= s[w + 1] << (32 - off);
-  return v & 31;
+  return v & ((1u << WBITS) - 1);
 }
 
-// r = [s] P with signed 5-bit windows: digit d = raw + carry in [0, 32];
-// d > 16 becomes -(32 - d) with a carry into the next window. The top
-// window's raw value is 0 (s < 2^255), so no carry is left over.
+// r = [s] P with signed windows: digit d = raw + carry in [0, 2 HALF];
+// d > HALF becomes -(2 HALF - d) with a carry into the next window. The top
+// window's raw value is at most HALF - 1 (s < 2^255), so no carry is left
+// over.
+template <int WBITS>
 DEV_NOINLINE void scalar_mul(Pt& r, const Pt& P, const uint32_t* s) {
-  Pt tab[TENT];
+  using W = Win<WBITS>;
+  Pt tab[W::TENT];
   pt_identity(tab[0]);
   tab[1] = P;
 #pragma unroll 1
-  for (int k = 2; k < TENT; k++) pt_add(tab[k], tab[k - 1], P);
-  uint8_t mag[NWIN];
-  uint8_t neg[NWIN];
+  for (int k = 2; k < W::TENT; k++) pt_add(tab[k], tab[k - 1], P);
+  uint8_t mag[W::NWIN];
+  uint8_t neg[W::NWIN];
   int carry = 0;
 #pragma unroll 1
-  for (int w = 0; w < NWIN; w++) {
-    const int d = scalar_bits(s, WBITS * w) + carry;
-    carry = d > 16;
-    mag[w] = carry ? 32 - d : d;
+  for (int w = 0; w < W::NWIN; w++) {
+    const int d = scalar_bits<WBITS>(s, WBITS * w) + carry;
+    carry = d > W::HALF;
+    mag[w] = carry ? 2 * W::HALF - d : d;
     neg[w] = carry;
   }
   Pt acc, t;
   pt_identity(acc);
 #pragma unroll 1
-  for (int w = NWIN - 1; w >= 0; w--) {
+  for (int w = W::NWIN - 1; w >= 0; w--) {
 #pragma unroll 1
     for (int k = 0; k < WBITS; k++) pt_double(acc, acc);
     t = tab[mag[w]];
@@ -65,6 +78,7 @@ DEV_NOINLINE void scalar_mul(Pt& r, const Pt& P, const uint32_t* s) {
 }
 
 // blockDim.x = KP * rows; KP = K rounded up to a power of two.
+template <int WBITS>
 __global__ void msm_kernel(const int64_t* pts, const int64_t* sc, int64_t* out, int B, int K, int KP) {
   extern __shared__ uint32_t smem[];
   Pt* part = reinterpret_cast<Pt*>(smem);
@@ -78,7 +92,7 @@ __global__ void msm_kernel(const int64_t* pts, const int64_t* sc, int64_t* out, 
     pt_load_port(P, pts + i * 75);
     uint32_t s[8];
     load_words<8>(s, sc + i * 17);
-    scalar_mul(acc, P, s);
+    scalar_mul<WBITS>(acc, P, s);
   }
   part[threadIdx.x] = acc;
   __syncthreads();
@@ -91,14 +105,17 @@ __global__ void msm_kernel(const int64_t* pts, const int64_t* sc, int64_t* out, 
   }
 }
 
-extern "C" int ph2_msm(const int64_t* pts, const int64_t* sc, int64_t* out, int B, int K, void* stream) {
+extern "C" int ph2_msm(const int64_t* pts, const int64_t* sc, int64_t* out, int B, int K, int wbits,
+                       void* stream) {
+  if (wbits != 4 && wbits != 5) return (int)cudaErrorInvalidValue;
   if (B > 0 && K > 0) {
     int KP = 1;
     while (KP < K) KP <<= 1;
     const int rows = KP >= 32 ? 1 : 32 / KP;  // one warp per block
     const int threads = KP * rows;
     const size_t shmem = (size_t)threads * sizeof(Pt);
-    msm_kernel<<<(B + rows - 1) / rows, threads, shmem, (cudaStream_t)stream>>>(pts, sc, out, B, K, KP);
+    auto kernel = wbits == 4 ? msm_kernel<4> : msm_kernel<5>;
+    kernel<<<(B + rows - 1) / rows, threads, shmem, (cudaStream_t)stream>>>(pts, sc, out, B, K, KP);
   }
   return (int)cudaGetLastError();
 }

@@ -62,7 +62,7 @@ def resolve_device(device=None) -> torch.device:
     """Entry points run on the card unless the caller asks for the CPU."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("TorchVerifier runs on a CUDA device and none is available; "
+        raise RuntimeError("the port runs on a CUDA device and none is available; "
                            "pass device='cpu' to run the plain versions on the CPU")
     return device
 

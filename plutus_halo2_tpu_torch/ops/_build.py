@@ -29,7 +29,7 @@ from .curve import BETA
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
-           "subgroup.cu")
+           "subgroup.cu", "mma_probe.cu")
 HEADERS = ("field.cuh", "tower.cuh", "curve.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -42,10 +42,13 @@ SIGNATURES = {
     "ph2_pow_fp": (_P, _P, _I, _P, _I, _I, _P),
     "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _P),
     "ph2_transcript": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
-    "ph2_msm": (_P, _P, _P, _I, _I, _P),
+    "ph2_msm": (_P, _P, _P, _I, _I, _I, _P),
     "ph2_pairing_check": (_P, _P, _P, _P, _I, _I, _P),
     "ph2_decompress": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ph2_subgroup": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
+    "ph2_mma_int8_chain": (_P, _P, _P, _I, _I, _P),
+    "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _P),
 }
 
 

@@ -5,7 +5,8 @@ counters.
 ``msm`` replaces ``plutus_halo2_tpu/ops/pallas_curve.py:233``
 ``make_msm_kernel``: B independent MSMs sum_k s_k P_k over K points. Points
 are (B, K, 3, 25) projective Montgomery limbs, scalars (B, K, 17) canonical
-Fr limbs; the result is a (B, 3, 25) projective point whose representative
+Fr limbs, ``wbits`` the signed-window width as the Pallas kernel takes it
+(5 on the verifier's path, 4 for the stage probe's ``msmp``); the result is a (B, 3, 25) projective point whose representative
 may differ from the plain version's, so compare results in affine
 coordinates. The plain version is ``ops/curve.msm`` (the JAX package's
 ``jc.msm``).
@@ -42,7 +43,12 @@ def _check_k(K: int, name: str):
         raise ValueError(f"{name} kernel takes 1 <= K <= {MAX_K} points per row, got {K}")
 
 
-def msm(points, scalars):
+MSM_WBITS = (4, 5)  # the Pallas kernel's widths: 64 windows / 9 entries, 52 / 17
+
+
+def msm(points, scalars, wbits: int = 5):
+    if wbits not in MSM_WBITS:
+        raise ValueError(f"msm takes wbits in {MSM_WBITS}, got {wbits}")
     if points.device.type == "cpu":
         return msm_plain(points, scalars)
     _build.require(points, "points", torch.int64, (None, None, 3, FP_SPEC.L))
@@ -51,7 +57,7 @@ def msm(points, scalars):
     _check_k(K, "msm")
     out = torch.empty((B, 3, FP_SPEC.L), dtype=torch.int64, device=points.device)
     lib = _build.library()
-    _build.check(lib.ph2_msm(_build.ptr(points), _build.ptr(scalars), _build.ptr(out), B, K,
+    _build.check(lib.ph2_msm(_build.ptr(points), _build.ptr(scalars), _build.ptr(out), B, K, wbits,
                              _build.stream_ptr()), "ph2_msm")
     msm.launches += 1
     return out

@@ -1,8 +1,9 @@
 """Kernel-vs-plain parity of the CUDA kernels at small, ragged shapes (any
 B, any K): each kernel's wrapper on CUDA tensors against its plain PyTorch
-version on the same inputs, exactly (the MSM in affine coordinates; the
-aggregate subgroup verdicts on rows whose points all decode), and the
-verifier's modes and verify_rlc on the card against the CPU.
+version on the same inputs, exactly (the MSM, at both window widths, in
+affine coordinates; the aggregate subgroup verdicts on rows whose points
+all decode; the tensor-core probe kernels bit for bit), and the verifier's
+modes and verify_rlc on the card against the CPU.
 
 These need a CUDA device and nvcc (sm_90a) and skip without them; run them
 on the GPU machine with ``python -m pytest tests/test_torch_kernels.py -m gpu
@@ -18,7 +19,7 @@ torch = pytest.importorskip("torch")
 # contend with the other test workers
 torch.set_num_threads(1)
 
-from plutus_halo2_tpu_torch.ops import cuda_blake, cuda_curve, cuda_field, cuda_pairing  # noqa: E402
+from plutus_halo2_tpu_torch.ops import cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_pairing  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops import pairing as tp  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC  # noqa: E402
@@ -90,6 +91,47 @@ def test_msm_kernel(dev, K):
     got, want = tc.to_affine(cuda_curve.msm(pts, sc)), tc.to_affine(cuda_curve.msm_plain(pts, sc))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K", [1, 5, 33])
+def test_msm_kernel_at_4_bit_windows(dev, K):
+    """The stage probe's width (the Pallas kernel's wbits=4): 64 windows
+    over a 9-entry table, against the plain MSM and the 5-bit kernel."""
+    rng = np.random.default_rng(100 + K)
+    host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=K)] + [None]
+    tab = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in host])).to(dev)
+    B = 11
+    pts = tab[torch.from_numpy(rng.integers(0, K + 1, size=(B, K))).to(dev)].contiguous()
+    sc = _canon(FR_SPEC, (B, K), 16 + K, dev)
+    sc[-1, 0] = torch.from_numpy(FR_SPEC.encode(FR_SPEC.N - 1)).to(dev)
+    want = tc.to_affine(cuda_curve.msm_plain(pts, sc))
+    for wbits in (4, 5):
+        for g, w in zip(tc.to_affine(cuda_curve.msm(pts, sc, wbits=wbits)), want):
+            assert torch.equal(g, w)
+
+
+def _probe_inputs(B, seed):
+    rng = np.random.default_rng(seed)
+    mat = torch.from_numpy(rng.integers(0, 127, (96, 48)).astype(np.int8))
+    vec = torch.from_numpy(rng.integers(0, 127, (48, B)).astype(np.int8))
+    return mat, vec
+
+
+@pytest.mark.parametrize("B", [1, 17, 1000])
+def test_mma_probe_kernels(dev, B):
+    """The three tensor-core probe kernels at ragged batch widths against
+    their plain versions, bit for bit, and the two chains against each
+    other (int8 and bf16 products compute one integer function)."""
+    mat, vec = _probe_inputs(B, B)
+    m_d, v_d = mat.to(dev), vec.to(dev)
+    assert torch.equal(cuda_mma.int8_dot(m_d, v_d).cpu(), cuda_mma.int8_dot_plain(mat, vec))
+    want = cuda_mma.chain_plain(mat, vec)
+    c8, c16 = cuda_mma.int8_chain(m_d, v_d).cpu(), cuda_mma.bf16_chain(m_d, v_d).cpu()
+    assert torch.equal(c8, want) and torch.equal(c16, want)
+    for steps in (0, 1, 7):
+        short = cuda_mma.chain_plain(mat, vec, steps)
+        assert torch.equal(cuda_mma.int8_chain(m_d, v_d, steps).cpu(), short)
+        assert torch.equal(cuda_mma.bf16_chain(m_d, v_d, steps).cpu(), short)
 
 
 def test_pairing_kernel(dev):
