@@ -22,14 +22,20 @@ hand-written CUDA kernels, in phases:
      test (1 and 2 rounds) against their plain
      PyTorch versions at the main path's shapes (exactly equal; the MSM in
      affine coordinates; the pairing on 1024 distinct checks built from the
-     slice's pairing sides, half of them true; decompression on the proof's
+     slice's pairing sides, half of them true, and on the first 128 of
+     them, the RLC group check's rows; decompression on the proof's
      points and crafted encodings, its subgroup verdicts on the rows whose
      points all decode); the three tensor-core probe kernels (int8 product,
      int8 and bf16 200-step chains) on the JAX probe's inputs at B = 1024
-     and at B = 1, 17, 128, bit for bit, the two chains equal; with
-     CUDA-event times and the least time the functions' operations need
-     (the probe kernels' at the tensor cores' peak rates), and
-     ``torch._int_mm`` timed beside the int8 product;
+     and at B = 1, 17, 128, bit for bit, the two chains equal. Each kernel
+     is timed by its device time (``ms``: the summed durations of its
+     kernel over a ``torch.profiler`` window of calls,
+     ``utils.profiling.device_ms``) and by what one call costs its caller
+     (``call_ms``: CUDA events around the call, the host's path to the
+     launch included), beside the least time the functions' operations
+     need (the probe kernels' at the tensor cores' peak rates);
+     ``torch._int_mm`` is timed beside the int8 product by the device time
+     of every kernel it launches;
   5. the paths, each on B = 1024 rows: a mixed batch of the committed
      simple_mul proof, its committed tampered twin, one bit-flipped row, one
      row with a corrupted proof scalar, one row whose first advice
@@ -79,24 +85,31 @@ HBM_BYTES_PER_S = 3.35e12
 TC_INT8_OPS_PER_S = 1979e12
 TC_BF16_FLOPS = 989e12
 PROBE_BATCH = 256  # the stage probe's batch: the plain versions on the card are slow
+RLC_ROWS = B // 8  # the group checks of verify_rlc(group=8)
 
 
 def _fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def _median_ms(fn, reps: int) -> float:
+def _call_ms(fn, reps: int) -> float:
+    """Median CUDA-event ms of one call of fn, recorded around it on an idle
+    stream: what one call costs its caller, the host's path to each launch
+    included (the plain versions' time, and a kernel's call_ms)."""
     import torch
 
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    from plutus_halo2_tpu_torch.utils.profiling import call_ms
+
+    return statistics.median(call_ms(fn, torch.device("cuda")) for _ in range(reps))
+
+
+def _times(fn, kernel, reps: int) -> tuple[float, float]:
+    """(device ms, call ms) of one call of fn: the device time of the
+    kernels whose name contains `kernel` (every kernel when None) over a
+    profiler window of `reps` calls, and the host-inclusive call time."""
+    from plutus_halo2_tpu_torch.utils.profiling import device_ms
+
+    return device_ms(fn, None if kernel is None else [kernel], calls=reps), _call_ms(fn, reps)
 
 
 def _bound_ms(int_ops: float, nbytes: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
@@ -133,20 +146,30 @@ LINE = 2 + 13 * FP2_MUL  # lambda * x, then the sparse 0/2/3 product (:324)
 FROB = 6 * FP2_MUL
 
 
-def _pairing_fp_products(n_live: int, fp_inv: int, x_abs: int) -> int:
-    """Fp products of one pairing-check row with n_live non-identity points
-    (fp_inv: products of one Fermat inversion; x_abs: |BLS x|)."""
+# An Fp inversion by the binary extended Euclidean algorithm (the pairing
+# kernel's; the Pallas kernel's Fermat ladder takes ~490 products): at least
+# log2(p) halvings of u or v, each a 12-word shift and a 12-word add (x1 or
+# x2 halved mod p), as 32-bit integer operations
+FP_INV_OPS = 381 * 2 * 12 * 2
+
+
+def _pairing_ops(n_live: int, x_abs: int) -> int:
+    """32-bit integer operations of one pairing-check row with n_live
+    non-identity points (x_abs: |BLS x|): its Fp products, each a CIOS
+    product of word multiplies counted as two operations, and its
+    inversions."""
     if n_live == 0:
         return 0  # e(O, Q1) e(O, Q2) = 1: nothing to compute
     n_sq, n_add = x_abs.bit_length() - 1, bin(x_abs).count("1") - 1
-    affine = n_live * (fp_inv + 2)
+    affine = n_live * 2
     miller = (n_sq - 1) * FP12_SQR + n_live * (n_sq + n_add) * LINE  # f = 1 needs no first squaring
-    fp6_inv = 12 * FP2_MUL + 4 + fp_inv
+    fp6_inv = 12 * FP2_MUL + 4
     fp12_inv = 24 * FP2_MUL + fp6_inv
     easy = fp12_inv + FP12_MUL + FROB + FP12_MUL
     exp_by_x = n_sq * CYC_SQR + n_add * FP12_MUL
     hard = 5 * exp_by_x + 2 * FP12_MUL + (FROB + FP12_MUL) + (FROB + 2 * FP12_MUL) + (CYC_SQR + 2 * FP12_MUL)
-    return affine + miller + easy + hard
+    products = affine + miller + easy + hard
+    return 2 * products * _cios_products(12) + (n_live + 1) * FP_INV_OPS
 
 
 def _signed_digits(s: int, nwin: int = 52) -> list[int]:
@@ -270,7 +293,7 @@ def main() -> int:
     from plutus_halo2_tpu_torch.refimpl import curve as rc
     from plutus_halo2_tpu_torch.refimpl.field import BLS_X, Q
     from plutus_halo2_tpu_torch.refimpl.keygen import plan_from_vk
-    from plutus_halo2_tpu_torch.utils.profiling import device_busy_us, device_time_by_name, torch_trace
+    from plutus_halo2_tpu_torch.utils.profiling import WINDOW, device_busy_us, device_time_by_name, torch_trace
     from plutus_halo2_tpu_torch.utils.serialization import parse_public_inputs, vk_from_json
 
     dev = torch.device("cuda")
@@ -311,15 +334,17 @@ def main() -> int:
 
     results = {}
 
-    def record(name, source, replaces, err, ms, plain_ms, bound, library_ms=None):
+    def record(name, source, replaces, err, times, plain_ms, bound, library_ms=None):
+        """times: (device ms, call ms) from _times; library_ms: device ms."""
+        ms, call = times
         results[name] = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "exact": err == 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "exact": err == 0, "max_abs_err": err, "ms": ms, "call_ms": call, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
         }
-        lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
-        print(f"[kernel] {name}: exact, {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms "
-              f"by {bound[1]}{lib})")
+        lib = "" if library_ms is None else f", library {library_ms:.4f} ms device"
+        print(f"[kernel] {name}: exact, {ms:.4f} ms device, {call:.4f} ms per call (plain {plain_ms:.3f} ms, "
+              f"bound {bound[0]:.5f} ms by {bound[1]}{lib})")
 
     # ---- 3. field phase --------------------------------------------------
     for spec, kern in ((FP_SPEC, cuda_field.fp_mont_mul), (FR_SPEC, cuda_field.fr_mont_mul)):
@@ -333,8 +358,8 @@ def main() -> int:
         print(f"[field] {spec.name} mont_mul kernel == plain on 65536 pairs")
         if spec is FP_SPEC:  # one CIOS product per pair; each pair read, its product written
             record("mont_mul", "plutus_halo2_tpu_torch/csrc/field_test.cu", "tests/test_pallas_core.py:139", 0,
-                   _median_ms(lambda: kern(a, b), 20),
-                   _median_ms(lambda: cuda_field.mont_mul_plain(a, b, spec), 5),
+                   _times(lambda: kern(a, b), "mont_mul_kernel", 20),
+                   _call_ms(lambda: cuda_field.mont_mul_plain(a, b, spec), 5),
                    _bound_ms(2 * a.shape[0] * _cios_products(12), 8 * 3 * a.numel()))
 
     # ---- the slice's inputs --------------------------------------------
@@ -375,8 +400,8 @@ def main() -> int:
     record("transcript", "plutus_halo2_tpu_torch/csrc/blake2b.cu",
            "plutus_halo2_tpu/ops/pallas_blake.py:82",
            max(limb_err(h1, p1), limb_err(h2, p2)),
-           _median_ms(lambda: cuda_blake.transcript_hashes(buf, lengths), 20),
-           _median_ms(lambda: cuda_blake.transcript_hashes_plain(buf, lengths), 3),
+           _times(lambda: cuda_blake.transcript_hashes(buf, lengths), "transcript_kernel", 20),
+           _call_ms(lambda: cuda_blake.transcript_hashes_plain(buf, lengths), 3),
            _bound_ms(B * _blake_ops(lengths), buf.numel() + 8 * (h1.numel() + h2.numel())))
 
     # pow: the Fr inversion root (B, 1) and the Fp sqrt ladder (B, 10)
@@ -395,8 +420,8 @@ def main() -> int:
         n = int(np.prod(shape))
         ops = 2 * n * _pow_products(window_digits(e)) * _cios_products(nw)
         record(name, "plutus_halo2_tpu_torch/csrc/pow.cu", "plutus_halo2_tpu/ops/pallas_field.py:32",
-               limb_err(got, want), _median_ms(lambda: kern(x, e), 10),
-               _median_ms(lambda: cuda_field.pow_plain(x, spec, e), 2),
+               limb_err(got, want), _times(lambda: kern(x, e), "pow_kernel", 10),
+               _call_ms(lambda: cuda_field.pow_plain(x, spec, e), 2),
                _bound_ms(ops, 2 * 8 * x.numel()))
 
     # MSM at the multi-open shape (K = 16 after dedup): random G1 points
@@ -421,14 +446,15 @@ def main() -> int:
                           8 * (pts.numel() + sc.numel() + B * 3 * FP_SPEC.L))
     record("msm", "plutus_halo2_tpu_torch/csrc/msm.cu", "plutus_halo2_tpu/ops/pallas_curve.py:233",
            max(limb_err(ga[0], wa[0]), limb_err(ga[1], wa[1])),
-           _median_ms(lambda: cuda_curve.msm(pts, sc), 10),
-           _median_ms(lambda: cuda_curve.msm_plain(pts, sc), 1), msm_bound)
+           _times(lambda: cuda_curve.msm(pts, sc), "msm_kernel", 10),
+           _call_ms(lambda: cuda_curve.msm_plain(pts, sc), 1), msm_bound)
     # the stage probe's width (msmp): 64 signed 4-bit windows, 9 table entries
     g4 = tc.to_affine(cuda_curve.msm(pts, sc, wbits=4))
     torch.cuda.synchronize()
     if not all(torch.equal(x, y) for x, y in zip(g4, wa)):
         _fail("MSM kernel at wbits 4 differs from the plain MSM (affine)")
-    print(f"[kernel] msm at wbits 4: exact, {_median_ms(lambda: cuda_curve.msm(pts, sc, wbits=4), 10):.3f} ms "
+    print(f"[kernel] msm at wbits 4: exact, "
+          f"{_times(lambda: cuda_curve.msm(pts, sc, wbits=4), 'msm_kernel', 10)[0]:.3f} ms device "
           f"(the same function: bound {msm_bound[0]:.4f} ms by {msm_bound[1]})")
 
     # pairing: a row of its own per check, built from the slice's honest
@@ -447,23 +473,35 @@ def main() -> int:
     scal = torch.cat([r_sc, torch.where(true_row[:, None], r_sc, s_sc)])
     sides = cuda_curve.msm_plain(base[:, None].contiguous(), scal[:, None].contiguous())
     el, er = sides[:B].contiguous(), sides[B:].contiguous()
-    got = cuda_pairing.pairing_check(el, er, verifier.pair)
-    want = cuda_pairing.pairing_check_plain(el, er, verifier.pair)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        _fail(f"pairing kernel differs from the plain pairing check on {int((got != want).sum())} rows")
-    if not torch.equal(got, true_row):
-        _fail("pairing verdicts differ from the rows' construction")
-    live = (~tc.is_identity(el)).to(torch.int64) + (~tc.is_identity(er)).to(torch.int64)
-    fp_inv = _pow_products(window_digits(FP_SPEC.N - 2))
-    fp_products = sum(_pairing_fp_products(int(n), fp_inv, BLS_X) for n in live.tolist())
-    record("pairing", "plutus_halo2_tpu_torch/csrc/pairing.cu",
-           "plutus_halo2_tpu/ops/pallas_pairing.py:419", int((got != want).sum()),
-           _median_ms(lambda: cuda_pairing.pairing_check(el, er, verifier.pair), 3),
-           _median_ms(lambda: cuda_pairing.pairing_check_plain(el, er, verifier.pair), 1),
-           _bound_ms(2 * fp_products * _cios_products(12), 8 * (el.numel() + er.numel()) + B))
+    def pairing_bound(el, er):
+        live = (~tc.is_identity(el)).to(torch.int64) + (~tc.is_identity(er)).to(torch.int64)
+        ops = sum(_pairing_ops(int(n), BLS_X) for n in live.tolist())
+        return _bound_ms(ops, 8 * (el.numel() + er.numel()) + el.shape[0])
+
+    # at B, then at the RLC group check's 128 rows (the first 128 checks)
+    for n in (B, RLC_ROWS):
+        el_n, er_n = el[:n].contiguous(), er[:n].contiguous()
+        got = cuda_pairing.pairing_check(el_n, er_n, verifier.pair)
+        want = cuda_pairing.pairing_check_plain(el_n, er_n, verifier.pair)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            _fail(f"pairing kernel differs from the plain pairing check on {int((got != want).sum())} "
+                  f"of {n} rows")
+        if not torch.equal(got, true_row[:n]):
+            _fail(f"pairing verdicts differ from the rows' construction at {n} rows")
+        times = _times(lambda: cuda_pairing.pairing_check(el_n, er_n, verifier.pair), "pairing_kernel", 5)
+        plain_ms = _call_ms(lambda: cuda_pairing.pairing_check_plain(el_n, er_n, verifier.pair), 1)
+        if n == B:
+            record("pairing", "plutus_halo2_tpu_torch/csrc/pairing.cu",
+                   "plutus_halo2_tpu/ops/pallas_pairing.py:419", int((got != want).sum()), times, plain_ms,
+                   pairing_bound(el_n, er_n))
+        else:
+            bound = pairing_bound(el_n, er_n)
+            print(f"[kernel] pairing at {n} rows: exact, {times[0]:.4f} ms device, {times[1]:.4f} ms per call "
+                  f"(plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]})")
     print(f"[kernel] pairing rows: {B} distinct checks, {int(true_row.sum())} true, "
-          f"{int((~true_row).sum())} false")
+          f"{int((~true_row).sum())} false; {cuda_pairing.LANES} lanes per row, "
+          f"{cuda_pairing.ROWS_PER_BLOCK or cuda_pairing.rows_per_block(B, dev)} rows per block at {B} rows")
 
     # hinted decompression at (B, 10): the proof's points with their hints;
     # in three of every four rows one point replaced by a crafted encoding
@@ -523,14 +561,14 @@ def main() -> int:
     record("decompress", "plutus_halo2_tpu_torch/csrc/decompress.cu",
            "plutus_halo2_tpu/ops/pallas_curve.py:367",
            limb_err(got[0], want[0]),
-           _median_ms(lambda: cuda_curve.decompress_hinted(raw_t, hints_t, sub_w), 20),
-           _median_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w), 2),
+           _times(lambda: cuda_curve.decompress_hinted(raw_t, hints_t, sub_w), "decompress_subgroup_kernel", 20),
+           _call_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w), 2),
            _bound_ms(2 * (dec_products + agg_products) * _cios_products(12),
                      raw.size + 8 * hints.size + 8 * got[0].numel() + got[1].numel() + B))
-    unfused_ms = _median_ms(lambda: cuda_curve.decompress_hinted(raw_t, hints_t), 20)
+    unfused_ms = _times(lambda: cuda_curve.decompress_hinted(raw_t, hints_t), "decompress_kernel", 20)[0]
     print(f"[kernel] decompress rows: {int(rows_ok.sum())} of {B} decode, "
-          f"{int((rows_ok & got[2]).sum())} of them in G1; unfused variant {unfused_ms:.3f} ms "
-          f"(plain {_median_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t), 2):.3f} ms)")
+          f"{int((rows_ok & got[2]).sum())} of them in G1; unfused variant {unfused_ms:.4f} ms device "
+          f"(plain {_call_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t), 2):.3f} ms)")
 
     # aggregate subgroup test at (B, 10) on decoded points: honest rows, rows
     # with identities, rows with a point outside G1; rounds 1 and 2
@@ -552,16 +590,16 @@ def main() -> int:
             _fail(f"subgroup kernel differs from the plain version at {rounds} rounds")
         if not torch.equal(ok_k, sub_member):
             _fail(f"subgroup verdicts differ from the rows' construction at {rounds} rounds")
-        ms = _median_ms(lambda: cuda_curve.aggregate_subgroup_check(pts_ok, w_r), 20)
-        plain_ms = _median_ms(lambda: cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r), 2)
+        times = _times(lambda: cuda_curve.aggregate_subgroup_check(pts_ok, w_r), "subgroup_kernel", 20)
+        plain_ms = _call_ms(lambda: cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r), 2)
         bound = _bound_ms(2 * sum(_aggregate_fp_products(w_r.tolist(), list(lv)) for lv in live_sub)
                           * _cios_products(12), 8 * pts_ok.numel() + B)
         if rounds == 1:
             record("subgroup", "plutus_halo2_tpu_torch/csrc/subgroup.cu",
-                   "plutus_halo2_tpu/ops/pallas_curve.py:642", int((ok_k != ok_p).sum()), ms, plain_ms,
+                   "plutus_halo2_tpu/ops/pallas_curve.py:642", int((ok_k != ok_p).sum()), times, plain_ms,
                    bound)
         else:
-            print(f"[kernel] subgroup at 2 rounds: exact, {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+            print(f"[kernel] subgroup at 2 rounds: exact, {times[0]:.3f} ms device (plain {plain_ms:.3f} ms, "
                   f"bound {bound[0]:.4f} ms by {bound[1]})")
     print(f"[kernel] subgroup rows: {int(sub_member.sum())} in G1, {int((~sub_member).sum())} not")
 
@@ -595,17 +633,18 @@ def main() -> int:
     if not torch.equal(torch._int_mm(mat, vec), want_dot):  # the yardstick (cuBLASLt), never used by the port
         _fail("torch._int_mm differs from the exact product")
     record("int8_dot", "plutus_halo2_tpu_torch/csrc/mma_probe.cu", "tools/mxu_probe.py:46", 0,
-           _median_ms(lambda: cuda_mma.int8_dot(mat, vec), 20),
-           _median_ms(lambda: cuda_mma.int8_dot_plain(mat, vec), 5),
+           _times(lambda: cuda_mma.int8_dot(mat, vec), "int8_dot_kernel", 50),
+           _call_ms(lambda: cuda_mma.int8_dot_plain(mat, vec), 5),
            _bound_ms(product_ops, in_bytes + 4 * dot.numel(), TC_INT8_OPS_PER_S),
-           _median_ms(lambda: torch._int_mm(mat, vec), 20))
+           # every device kernel the library call launches
+           _times(lambda: torch._int_mm(mat, vec), None, 50)[0])
     for name, kern, line, peak in (("int8_chain", cuda_mma.int8_chain, 101, TC_INT8_OPS_PER_S),
                                    ("bf16_chain", cuda_mma.bf16_chain, 122, TC_BF16_FLOPS)):
-        ms = _median_ms(lambda: kern(mat, vec), 20)
-        record(name, "plutus_halo2_tpu_torch/csrc/mma_probe.cu", f"tools/mxu_probe.py:{line}", 0, ms,
-               _median_ms(lambda: cuda_mma.chain_plain(mat, vec), 3),
+        times = _times(lambda: kern(mat, vec), "mma_probe_kernel", 20)
+        record(name, "plutus_halo2_tpu_torch/csrc/mma_probe.cu", f"tools/mxu_probe.py:{line}", 0, times,
+               _call_ms(lambda: cuda_mma.chain_plain(mat, vec), 3),
                _bound_ms(steps * step_ops, in_bytes + 4 * c8.numel(), peak))
-        print(f"[kernel] {name}: {ms * 1e3 / steps:.3f} us per product ({steps} dependent products)")
+        print(f"[kernel] {name}: {times[0] * 1e3 / steps:.3f} us per product ({steps} dependent products)")
 
     # ---- 5. the paths ------------------------------------------------------
     counters = {
@@ -804,6 +843,7 @@ def main() -> int:
     for name, count, us in by_name[:8]:
         print(f"[trace]   {us / 1e3:9.3f} ms in {count:5d} x {name[:100]}")
 
+    print(f"[timer] device_ms's windows open with {WINDOW['fillers']} filler kernels (raised {WINDOW['raised']} times)")
     ecc_after, xid = _health()
     print(f"[health] ECC after the run: {ecc_after} (before: {ecc_before})")
     print(f"[health] Xid: {xid}")

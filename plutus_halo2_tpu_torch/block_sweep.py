@@ -1,15 +1,17 @@
-"""Block-size sweep of the one-thread-per-row kernels on one GPU.
+"""Block-size sweep of the kernels on one GPU.
 
     python3 -m plutus_halo2_tpu_torch.block_sweep [--batch 1024] [--reps 5]
 
-Times the transcript, Fr pow, Fp pow, pairing, hinted decompression (fused
-with the 1-round subgroup test) and aggregate subgroup kernels at the
-verifier's shapes (B rows; the Fp pow and decompression at B x 10 points)
-with CUDA events, at the default block size (``ops._build.BLOCK_THREADS``;
-the row-layout kernels take BLOCK_THREADS // 16 rows of 16 lanes per block)
-and at fixed sizes from 1 to 128 threads, checks that every size gives the
-default's output, and prints one JSON line per kernel with the median ms
-per size. Then it times ``TorchVerifier.verify()`` in the default mode
+Times the transcript, Fr pow, Fp pow, hinted decompression (fused with the
+1-round subgroup test) and aggregate subgroup kernels at the verifier's
+shapes (B rows; the Fp pow and decompression at B x 10 points) by device
+time (``utils.profiling.device_ms``), at the default block size
+(``ops._build.BLOCK_THREADS``; the row-layout kernels take BLOCK_THREADS //
+16 rows of 16 lanes per block) and at fixed sizes from 1 to 128 threads,
+checks that every size gives the default's output, and prints one JSON line
+per kernel with the device ms per size. The pairing kernel is swept over
+its lanes per row (16, 32) and rows per block (1, 2, 4, 8) at B and at
+the RLC group check's B / 8 rows. Then it times ``TorchVerifier.verify()`` in the default mode
 (y-hints, the aggregate subgroup test) on a B-proof batch of the committed
 simple_mul proof at the default block size and at one thread per block,
 alternated (1, default, default, 1, ...) in one process so that the
@@ -34,8 +36,11 @@ from .ops import curve as tc
 from .ops import pairing as tp
 from .ops.limb import FP_SPEC, FR_SPEC
 from .refimpl import curve as rc
+from .utils.profiling import device_ms
 
 SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
+PAIRING_LANES = (16, 32)
+PAIRING_ROWS = (1, 2, 4, 8)
 # the squeeze lengths of simple_mul's transcript (models/layout.py)
 SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)
 
@@ -44,18 +49,6 @@ def _canon(spec, shape, rng, dev):
     n = int(np.prod(shape))
     vals = [int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N for _ in range(n)]
     return torch.from_numpy(np.stack([spec.encode(v) for v in vals]).reshape(*shape, spec.L)).to(dev)
-
-
-def _median_ms(fn, reps: int) -> float:
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _same(a, b) -> bool:
@@ -104,6 +97,29 @@ def _verify_ab(B: int, rounds: int):
                           "stage_ms": {k: statistics.median(st[k] for _, st in rs) for k in rs[0][1]}}))
 
 
+def _pairing_sweep(el, er, pp, reps: int):
+    """The pairing kernel's device ms per (lanes per row, rows per block) at
+    B rows and at B / 8, each setting's verdicts checked against the
+    default's."""
+    default = cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK
+    for n in (el.shape[0], el.shape[0] // 8):
+        el_n, er_n = el[:n].contiguous(), er[:n].contiguous()
+        fn = lambda: cuda_pairing.pairing_check(el_n, er_n, pp)  # noqa: E731
+        want = fn()
+        ms = {}
+        try:
+            for lanes in PAIRING_LANES:
+                for rows in PAIRING_ROWS:
+                    cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = lanes, rows
+                    if not torch.equal(fn(), want):
+                        raise SystemExit(f"block_sweep: pairing at {lanes} lanes, {rows} rows per block differs")
+                    ms[f"{lanes}x{rows}"] = device_ms(fn, ["pairing_kernel"], reps)
+        finally:
+            cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = default
+        print(json.dumps({"kernel": "pairing", "items": n, "default": f"{default[0]}x{default[1]}",
+                          "ms_by_lanes_x_rows": ms}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024)
@@ -135,27 +151,28 @@ def main(argv=None) -> int:
     sub_w = tc.subgroup_weights(10, 1, torch.Generator().manual_seed(args.seed))
     pts = cuda_curve.decompress_hinted(raw, hints)[0]
     cases = (
-        ("transcript", B, lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)),
-        ("pow_fr", B, lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2)),
-        ("pow_fp", 10 * B, lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2)),
-        ("pairing", B, lambda: cuda_pairing.pairing_check(el, er, pp)),
-        ("decompress", 10 * B, lambda: cuda_curve.decompress_hinted(raw, hints, sub_w)),
-        ("subgroup", 10 * B, lambda: cuda_curve.aggregate_subgroup_check(pts, sub_w)),
+        ("transcript", B, "transcript_kernel", lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)),
+        ("pow_fr", B, "pow_kernel", lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2)),
+        ("pow_fp", 10 * B, "pow_kernel", lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2)),
+        ("decompress", 10 * B, "decompress_subgroup_kernel",
+         lambda: cuda_curve.decompress_hinted(raw, hints, sub_w)),
+        ("subgroup", 10 * B, "subgroup_kernel", lambda: cuda_curve.aggregate_subgroup_check(pts, sub_w)),
     )
     default = _build.BLOCK_THREADS
-    for name, n, fn in cases:
+    for name, n, kernel, fn in cases:
         _build.BLOCK_THREADS = default
         want = fn()
-        default_ms = _median_ms(fn, args.reps)
+        default_ms = device_ms(fn, [kernel], args.reps)
         ms = {}
         for t in SIZES:
             _build.BLOCK_THREADS = t
             if not _same(fn(), want):
                 raise SystemExit(f"block_sweep: {name} at {t} threads per block differs")
-            ms[t] = _median_ms(fn, args.reps)
+            ms[t] = device_ms(fn, [kernel], args.reps)
         print(json.dumps({"kernel": name, "items": n, "default_threads": default,
                           "default_ms": default_ms, "ms_by_threads": ms}))
     _build.BLOCK_THREADS = default
+    _pairing_sweep(el, er, pp, args.reps)
     _verify_ab(B, args.verify_rounds)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)

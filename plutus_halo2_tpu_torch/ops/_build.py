@@ -23,14 +23,14 @@ import time
 from pathlib import Path
 
 from ..refimpl.field import BLS_X, P, Q
-from . import tower
+from . import pairing_program
 from .curve import BETA
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
            "subgroup.cu", "mma_probe.cu")
-HEADERS = ("field.cuh", "tower.cuh", "curve.cuh")
+HEADERS = ("field.cuh", "curve.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
@@ -43,7 +43,7 @@ SIGNATURES = {
     "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _P),
     "ph2_transcript": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
     "ph2_msm": (_P, _P, _P, _I, _I, _I, _P),
-    "ph2_pairing_check": (_P, _P, _P, _P, _I, _I, _P),
+    "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_decompress": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ph2_subgroup": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
@@ -70,10 +70,12 @@ def field_consts_header() -> str:
     """The generated constants: per field the modulus, -N^-1 mod 2^32, R mod
     N (one in the kernel domain), and the two boundary factors that move a
     value between the port's 16-bit-limb domain (R = 2^(16 L)) and the
-    kernels' 32-bit-word domain (R = 2^(32 W)); plus the Frobenius gammas
-    and the Fermat exponent p - 2 for the pairing; the curve constants of
+    kernels' 32-bit-word domain (R = 2^(32 W)); the curve constants of
     hinted decompression (R^2 mod p, b = 4, (p + 1) / 2 as plain words) and
-    the cube root of unity beta of the subgroup test."""
+    the cube root of unity beta of the subgroup test; R^3 mod p (plain
+    words), which turns the pairing kernel's Euclidean inverse into the
+    Montgomery domain, and the pairing kernel's row layout, program ids and
+    slot-reference bases."""
     out = ["// generated by plutus_halo2_tpu_torch/ops/_build.py — do not edit\n",
            "#pragma once\n#include <cstdint>\n"]
     for name, mod, nw, l16 in (("FP", P, 12, 25), ("FR", Q, 8, 17)):
@@ -85,18 +87,13 @@ def field_consts_header() -> str:
         out.append(_arr(f"{name}_TO_K", words(pow(2, 2 * rk - rp, mod), nw)))
         # kernel -> port: times 2^rp / R_k
         out.append(_arr(f"{name}_FROM_K", words(pow(2, rp, mod), nw)))
-    gam = tower.host_gamma_ints()
-    flat = []
-    for k in (1, 2, 3):
-        for c0, c1 in gam[k]:
-            flat += kernel_fp(c0) + kernel_fp(c1)
-    out.append(_arr("FP_GAMMA", flat))  # (3, 6, 2, 12)
-    out.append(_arr("FP_PM2", words(P - 2, 12)))
     out.append(_arr("FP_R2K", kernel_fp(1 << 384)))
     out.append(_arr("FP_B4", kernel_fp(4)))
     out.append(_arr("FP_HALF", words((P + 1) >> 1, 12)))
     out.append(_arr("FP_BETA", kernel_fp(BETA)))
+    out.append(_arr("FP_R3", words(pow(2, 3 * 384, P), 12)))
     out.append(f"static constexpr uint64_t BLS_X_ABS = 0x{BLS_X:016x}ull;\n")
+    out.append(pairing_program.kernel_header())
     return "".join(out)
 
 
@@ -205,12 +202,13 @@ def stream_ptr():
 
 
 # Threads per block of the one-thread-per-item kernels (transcript, pow,
-# pairing, unfused decompress), read at each launch: within 6 % of the
-# fastest size for each of them at the verifier's shapes on an H100
-# (PERF.md; python3 -m plutus_halo2_tpu_torch.block_sweep). The row-layout
-# kernels (fused decompress, subgroup) put max(1, BLOCK_THREADS // KP) rows
-# of KP lanes in a block, KP the row's point count rounded up to a power of
-# two.
+# unfused decompress), read at each launch: within 6 % of the fastest size
+# for each of them at the verifier's shapes on an H100 (PERF.md; python3 -m
+# plutus_halo2_tpu_torch.block_sweep). The row-layout kernels (fused
+# decompress, subgroup) put max(1, BLOCK_THREADS // KP) rows of KP lanes in
+# a block, KP the row's point count rounded up to a power of two. The
+# pairing kernel takes its own lanes per row and rows per block
+# (cuda_pairing.LANES, ROWS_PER_BLOCK).
 BLOCK_THREADS = 64
 
 

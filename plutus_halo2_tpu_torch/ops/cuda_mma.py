@@ -46,6 +46,8 @@ def chain_plain(mat, vec, steps: int = STEPS):
 def _launch(fn: str, mat, vec, rows: int, *steps):
     _build.require(mat, "mat", torch.int8, (M, K))
     _build.require(vec, "vec", torch.int8, (K, None))
+    if mat.data_ptr() % 4:
+        raise ValueError("mat: the kernels read its rows as 4-byte words; expected a 4-byte aligned tensor")
     B = vec.shape[1]
     out = torch.empty((rows, B), dtype=torch.int32, device=vec.device)
     lib = _build.library()

@@ -24,7 +24,9 @@ Stages (default: mul chain pairing msm blake decompress sqrtp verify):
               kernel, with row 1 corrupted to exercise the reject path.
 
 Each stage is timed as the median of 3 calls after a first one (CUDA events
-on the card, the host clock on the CPU) and checks its result against the
+on the card, the host clock on the CPU: what a call costs its caller) and,
+on the card, by the device time of all the kernels it launches
+(``utils.profiling.device_ms`` over 5 more calls); it checks its result against the
 port's ``refimpl`` (Python integers), the verifier stages against the
 committed simple_mul artifacts' verdicts (the last row the tampered proof
 when BATCH >= 2); a wrong result raises. ``--trace DIR`` records one more
@@ -54,7 +56,7 @@ from ..ops import pairing as tp
 from ..ops.blake2b import blake2b_256
 from ..refimpl import curve as rc
 from ..refimpl.field import P, Q, fr_inv
-from ..utils.profiling import call_ms, card_line, device_busy_us, torch_trace
+from ..utils.profiling import call_ms, card_line, device_busy_us, device_ms, torch_trace
 
 STAGES = ("mul", "chain", "blake", "decompress", "sqrtp", "msm", "msmp", "msmp5", "verify", "verifyh",
           "core", "subk", "pairing", "pairingp")
@@ -103,7 +105,11 @@ class _Probe:
         first_s = time.perf_counter() - t0
         ms = statistics.median(call_ms(fn, self.dev) for _ in range(3))
         self.results[name] = ms
-        print(f"{name:36s} run={ms:10.3f} ms  first={first_s:7.2f} s", flush=True)
+        dev = ""
+        if self.dev.type == "cuda":
+            self.results[name + " device"] = dev_ms = device_ms(fn, None, calls=5)
+            dev = f"  device={dev_ms:10.3f} ms"
+        print(f"{name:36s} run={ms:10.3f} ms{dev}  first={first_s:7.2f} s", flush=True)
         if trace and self.trace_dir:
             with torch_trace(self.trace_dir) as path:
                 traced_ms = call_ms(fn, self.dev)

@@ -24,6 +24,7 @@ from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops import pairing as tp  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC  # noqa: E402
 from plutus_halo2_tpu_torch.refimpl import curve as rc  # noqa: E402
+from plutus_halo2_tpu_torch.tools.pairing_probe import S, check_rows  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -134,20 +135,24 @@ def test_mma_probe_kernels(dev, B):
         assert torch.equal(cuda_mma.bf16_chain(m_d, v_d, steps).cpu(), short)
 
 
-def test_pairing_kernel(dev):
-    s_g2 = rc.g2_mul(rc.G2_GEN, 0xC0FFEE)
-    pp = cuda_pairing.PreparedPair(tp.prepare_g2(s_g2), tp.prepare_g2(rc.G2_GEN))
-    rng = np.random.default_rng(7)
-    host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=4)] + [None]
-    a = rc.g1_mul(rc.G1_GEN, 11)
-    # row 0 passes: e([11]G, [s]G2) e(-[11 s]G, G2) == 1
-    el = [a] + [host[i % 5] for i in range(4)]
-    er = [rc.g1_neg(rc.g1_mul(a, 0xC0FFEE))] + [host[(i + 2) % 5] for i in range(4)]
-    el_t = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in el])).to(dev)
-    er_t = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in er])).to(dev)
-    got = cuda_pairing.pairing_check(el_t, er_t, pp)
-    assert torch.equal(got, cuda_pairing.pairing_check_plain(el_t, er_t, pp))
-    assert got[0].item()
+@pytest.mark.parametrize("B", [1, 17, 129, 1024])
+def test_pairing_kernel(dev, B):
+    """Rows of e([r]G, [s]G2) e([t]G, G2): true where t = -r s (rows 0, 2
+    mod 4), false otherwise, the identity on the left (r = 0) or the right
+    (t = 0) in some rows, (O, O) in row 0; B ragged against the rows per
+    block, at every lane-group width."""
+    pp = cuda_pairing.PreparedPair(tp.prepare_g2(rc.g2_mul(rc.G2_GEN, S)), tp.prepare_g2(rc.G2_GEN))
+    el, er, want = check_rows(B, B, dev)
+    plain = cuda_pairing.pairing_check_plain(el, er, pp)
+    assert torch.equal(plain, want)
+    default = cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK
+    for lanes, rows in (default, (32, 1), (32, 3), (16, 3)):
+        cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = lanes, rows
+        try:
+            got = cuda_pairing.pairing_check(el, er, pp)
+        finally:
+            cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = default
+        assert torch.equal(got, plain), (lanes, rows)
 
 
 def _artifacts():
