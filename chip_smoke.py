@@ -12,20 +12,24 @@ hand-written CUDA kernels, in phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
-  2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``;
+  2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``,
+     and the build log's registers, stack frame and spill bytes of the
+     lane-group MSM and fused decompress kernels are printed;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
      PyTorch product on 2^16 random canonical pairs (exactly equal), the Fp
      kernel timed beside its bound;
-  4. kernels: transcript, Fr pow, Fp pow, MSM (at 5-bit windows, and at
-     the stage probe's 4), pairing, hinted decompression (fused with the
-     subgroup test at 1 round, and unfused) and the aggregate subgroup
-     test (1 and 2 rounds) against their plain
-     PyTorch versions at the main path's shapes (exactly equal; the MSM in
-     affine coordinates; the pairing on 1024 distinct checks built from the
+  4. kernels: transcript, Fr pow, Fp pow, MSM (at 5-bit windows, at
+     the stage probe's 4, and at the RLC aggregation's (B / 4, 8)), pairing,
+     hinted decompression (fused with the subgroup test at 1 round, and
+     unfused) and the aggregate subgroup test (1 and 2 rounds) against their
+     plain PyTorch versions at the main path's shapes (exactly equal; the MSM
+     limb for limb with the plain version of its decomposition and in affine
+     coordinates with the per-point MSM; the pairing on 1024 distinct checks built from the
      slice's pairing sides, half of them true, and on the first 128 of
      them, the RLC group check's rows; decompression on the proof's
      points and crafted encodings, its subgroup verdicts on the rows whose
-     points all decode); the three tensor-core probe kernels (int8 product,
+     points all decode, also against the per-point aggregate test); the
+     three tensor-core probe kernels (int8 product,
      int8 and bf16 200-step chains) on the JAX probe's inputs at B = 1024
      and at B = 1, 17, 128, bit for bit, the two chains equal. Each kernel
      is timed by its device time (``ms``: the summed durations of its
@@ -101,6 +105,14 @@ def _call_ms(fn, reps: int) -> float:
     from plutus_halo2_tpu_torch.utils.profiling import call_ms
 
     return statistics.median(call_ms(fn, torch.device("cuda")) for _ in range(reps))
+
+
+def _plain(fn):
+    """(fn's output, its call ms): the plain version runs once, timed by
+    CUDA events around that call, and the same output is checked."""
+    out = []
+    ms = _call_ms(lambda: out.append(fn()), 1)
+    return out[0], ms
 
 
 def _times(fn, kernel, reps: int) -> tuple[float, float]:
@@ -322,6 +334,10 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if line.startswith("==") or any(k in line for k in ("entry function", "registers", "stack frame")):
             print(f"[build] {line.strip()}")
+    for name in ("msm_kernel", "decompress_subgroup_kernel"):  # the lane-group curve kernels
+        for r in _build.kernel_resources(name):
+            print(f"[build] {r['function']}: {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
+                  f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
 
     def rand_canon(spec, shape):
         """Random canonical values < N as (shape..., L) limb tensors."""
@@ -393,15 +409,14 @@ def main() -> int:
     lengths = [l for _n, l in verifier.layout.squeezes]
     buf = verifier.transcript_buffer(proof_t, pis_t)
     h1, h2 = cuda_blake.transcript_hashes(buf, lengths)
-    p1, p2 = cuda_blake.transcript_hashes_plain(buf, lengths)
+    (p1, p2), plain_ms = _plain(lambda: cuda_blake.transcript_hashes_plain(buf, lengths))
     torch.cuda.synchronize()
     if not (torch.equal(h1, p1) and torch.equal(h2, p2)):
         _fail("transcript kernel differs from the plain Blake2b")
     record("transcript", "plutus_halo2_tpu_torch/csrc/blake2b.cu",
            "plutus_halo2_tpu/ops/pallas_blake.py:82",
            max(limb_err(h1, p1), limb_err(h2, p2)),
-           _times(lambda: cuda_blake.transcript_hashes(buf, lengths), "transcript_kernel", 20),
-           _call_ms(lambda: cuda_blake.transcript_hashes_plain(buf, lengths), 3),
+           _times(lambda: cuda_blake.transcript_hashes(buf, lengths), "transcript_kernel", 20), plain_ms,
            _bound_ms(B * _blake_ops(lengths), buf.numel() + 8 * (h1.numel() + h2.numel())))
 
     # pow: the Fr inversion root (B, 1) and the Fp sqrt ladder (B, 10)
@@ -412,7 +427,7 @@ def main() -> int:
     ):
         x = rand_canon(spec, shape)
         got = kern(x, e)
-        want = cuda_field.pow_plain(x, spec, e)
+        want, plain_ms = _plain(lambda: cuda_field.pow_plain(x, spec, e))
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             _fail(f"{name} kernel differs from the plain pow")
@@ -420,8 +435,7 @@ def main() -> int:
         n = int(np.prod(shape))
         ops = 2 * n * _pow_products(window_digits(e)) * _cios_products(nw)
         record(name, "plutus_halo2_tpu_torch/csrc/pow.cu", "plutus_halo2_tpu/ops/pallas_field.py:32",
-               limb_err(got, want), _times(lambda: kern(x, e), "pow_kernel", 10),
-               _call_ms(lambda: cuda_field.pow_plain(x, spec, e), 2),
+               limb_err(got, want), _times(lambda: kern(x, e), "pow_kernel", 10), plain_ms,
                _bound_ms(ops, 2 * 8 * x.numel()))
 
     # MSM at the multi-open shape (K = 16 after dedup): random G1 points
@@ -433,29 +447,48 @@ def main() -> int:
     sc = rand_canon(FR_SPEC, (B, K))
     sc[0, 1] = 0
     sc[1, 2] = torch.from_numpy(FR_SPEC.encode(Q - 1)).to(dev)
-    got = cuda_curve.msm(pts, sc)
-    want = cuda_curve.msm_plain(pts, sc)
-    ga, wa = tc.to_affine(got), tc.to_affine(want)
-    torch.cuda.synchronize()
-    if not (torch.equal(ga[2], wa[2]) and torch.equal(ga[0], wa[0]) and torch.equal(ga[1], wa[1])):
-        _fail("MSM kernel differs from the plain MSM (affine)")
-    live_pts = (pts[:, :, 2].abs().sum(-1) != 0).cpu().tolist()
-    sc_ints = [[limbs_to_int(v) for v in row] for row in sc.cpu().numpy()]
-    msm_products = sum(_msm_fp_products(s, l) for s, l in zip(sc_ints, live_pts))
-    msm_bound = _bound_ms(2 * msm_products * _cios_products(12),
-                          8 * (pts.numel() + sc.numel() + B * 3 * FP_SPEC.L))
+
+    def msm_check(pts, sc, wbits=5, ref=None):
+        """The kernel against the plain version of its decomposition (limb for
+        limb) and the per-point MSM (affine; `ref`, when given, is that
+        already); the kernel's output, the plain one, its call ms and ref."""
+        got = cuda_curve.msm(pts, sc, wbits=wbits)
+        want, plain_ms = _plain(lambda: tc.msm_windowed(pts, sc, wbits))
+        ref = ref if ref is not None else tc.to_affine(cuda_curve.msm_plain(pts, sc))
+        ga = tc.to_affine(got)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            _fail(f"MSM kernel at {tuple(pts.shape[:2])}, wbits {wbits} differs from the plain windowed MSM on "
+                  f"{int((got != want).any(-1).any(-1).sum())} rows")
+        if not all(torch.equal(x, y) for x, y in zip(ga, ref)):
+            _fail(f"MSM kernel at {tuple(pts.shape[:2])}, wbits {wbits} differs from the per-point MSM (affine)")
+        return got, want, plain_ms, ref
+
+    def msm_bound(pts, sc):
+        live = (pts[:, :, 2].abs().sum(-1) != 0).cpu().tolist()
+        ints = [[limbs_to_int(v) for v in row] for row in sc.cpu().numpy()]
+        products = sum(_msm_fp_products(s, l) for s, l in zip(ints, live))
+        return _bound_ms(2 * products * _cios_products(12),
+                         8 * (pts.numel() + sc.numel() + pts.shape[0] * 3 * FP_SPEC.L))
+
+    got, want, plain_ms, ref = msm_check(pts, sc)
+    bound = msm_bound(pts, sc)
     record("msm", "plutus_halo2_tpu_torch/csrc/msm.cu", "plutus_halo2_tpu/ops/pallas_curve.py:233",
-           max(limb_err(ga[0], wa[0]), limb_err(ga[1], wa[1])),
-           _times(lambda: cuda_curve.msm(pts, sc), "msm_kernel", 10),
-           _call_ms(lambda: cuda_curve.msm_plain(pts, sc), 1), msm_bound)
+           limb_err(got, want), _times(lambda: cuda_curve.msm(pts, sc), "msm_kernel", 10), plain_ms, bound)
     # the stage probe's width (msmp): 64 signed 4-bit windows, 9 table entries
-    g4 = tc.to_affine(cuda_curve.msm(pts, sc, wbits=4))
-    torch.cuda.synchronize()
-    if not all(torch.equal(x, y) for x, y in zip(g4, wa)):
-        _fail("MSM kernel at wbits 4 differs from the plain MSM (affine)")
+    msm_check(pts, sc, wbits=4, ref=ref)
     print(f"[kernel] msm at wbits 4: exact, "
-          f"{_times(lambda: cuda_curve.msm(pts, sc, wbits=4), 'msm_kernel', 10)[0]:.3f} ms device "
-          f"(the same function: bound {msm_bound[0]:.4f} ms by {msm_bound[1]})")
+          f"{_times(lambda: cuda_curve.msm(pts, sc, wbits=4), 'msm_kernel', 10)[0]:.4f} ms device "
+          f"(the same function: bound {bound[0]:.4f} ms by {bound[1]})")
+    # the RLC aggregation's shape in verify_rlc(group=8): K = 8 at B / 4 rows
+    pts8, sc8 = pts[: B // 4, :8].contiguous(), sc[: B // 4, :8].contiguous()
+    plain_ms = msm_check(pts8, sc8)[2]
+    times = _times(lambda: cuda_curve.msm(pts8, sc8), "msm_kernel", 10)
+    bound = msm_bound(pts8, sc8)
+    print(f"[kernel] msm at ({B // 4}, 8): exact, {times[0]:.4f} ms device, {times[1]:.4f} ms per call "
+          f"(plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]})")
+    print(f"[kernel] msm rows: {cuda_curve.MSM_LANES} lanes per row, rows per block "
+          f"{cuda_curve.MSM_ROWS or 'from B'}; the fused decompress kernel {cuda_curve.DECOMPRESS_LANES} lanes")
 
     # pairing: a row of its own per check, built from the slice's honest
     # pairing sides (el, er): rows 0, 2 mod 4 are true pairs ([r]el, [r]er),
@@ -482,7 +515,7 @@ def main() -> int:
     for n in (B, RLC_ROWS):
         el_n, er_n = el[:n].contiguous(), er[:n].contiguous()
         got = cuda_pairing.pairing_check(el_n, er_n, verifier.pair)
-        want = cuda_pairing.pairing_check_plain(el_n, er_n, verifier.pair)
+        want, plain_ms = _plain(lambda: cuda_pairing.pairing_check_plain(el_n, er_n, verifier.pair))
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             _fail(f"pairing kernel differs from the plain pairing check on {int((got != want).sum())} "
@@ -490,7 +523,6 @@ def main() -> int:
         if not torch.equal(got, true_row[:n]):
             _fail(f"pairing verdicts differ from the rows' construction at {n} rows")
         times = _times(lambda: cuda_pairing.pairing_check(el_n, er_n, verifier.pair), "pairing_kernel", 5)
-        plain_ms = _call_ms(lambda: cuda_pairing.pairing_check_plain(el_n, er_n, verifier.pair), 1)
         if n == B:
             record("pairing", "plutus_halo2_tpu_torch/csrc/pairing.cu",
                    "plutus_halo2_tpu/ops/pallas_pairing.py:419", int((got != want).sum()), times, plain_ms,
@@ -539,7 +571,7 @@ def main() -> int:
     raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
     sub_w = tc.subgroup_weights(n_pts, 1, torch.Generator().manual_seed(SEED))
     got = cuda_curve.decompress_hinted(raw_t, hints_t, sub_w)
-    want = cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w)
+    want, plain_ms = _plain(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w))
     unfused = cuda_curve.decompress_hinted(raw_t, hints_t)
     torch.cuda.synchronize()
     rows_ok = got[1].all(-1)
@@ -554,6 +586,8 @@ def main() -> int:
         _fail("fused subgroup verdicts differ from the plain version on rows that decode")
     if not torch.equal(got[2][rows_ok].cpu(), torch.from_numpy(member)[rows_ok.cpu()]):
         _fail("fused subgroup verdicts differ from the rows' construction")
+    if not torch.equal(got[2][rows_ok], tc.aggregate_subgroup_check(want[0], sub_w)[rows_ok]):
+        _fail("fused subgroup verdicts differ from the per-point aggregate test on rows that decode")
     w_host = sub_w.tolist()
     live_pts = (~tc.is_identity(got[0])).cpu().numpy()
     dec_products = DECODE_FP_PRODUCTS * int((raw[..., 0] & 0x40 == 0).sum())
@@ -562,7 +596,7 @@ def main() -> int:
            "plutus_halo2_tpu/ops/pallas_curve.py:367",
            limb_err(got[0], want[0]),
            _times(lambda: cuda_curve.decompress_hinted(raw_t, hints_t, sub_w), "decompress_subgroup_kernel", 20),
-           _call_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w), 2),
+           plain_ms,
            _bound_ms(2 * (dec_products + agg_products) * _cios_products(12),
                      raw.size + 8 * hints.size + 8 * got[0].numel() + got[1].numel() + B))
     unfused_ms = _times(lambda: cuda_curve.decompress_hinted(raw_t, hints_t), "decompress_kernel", 20)[0]
@@ -584,14 +618,13 @@ def main() -> int:
     for rounds in (1, 2):
         w_r = tc.subgroup_weights(n_pts, rounds, torch.Generator().manual_seed(SEED + rounds))
         ok_k = cuda_curve.aggregate_subgroup_check(pts_ok, w_r)
-        ok_p = cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r)
+        ok_p, plain_ms = _plain(lambda: cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r))
         torch.cuda.synchronize()
         if not torch.equal(ok_k, ok_p):
             _fail(f"subgroup kernel differs from the plain version at {rounds} rounds")
         if not torch.equal(ok_k, sub_member):
             _fail(f"subgroup verdicts differ from the rows' construction at {rounds} rounds")
         times = _times(lambda: cuda_curve.aggregate_subgroup_check(pts_ok, w_r), "subgroup_kernel", 20)
-        plain_ms = _call_ms(lambda: cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r), 2)
         bound = _bound_ms(2 * sum(_aggregate_fp_products(w_r.tolist(), list(lv)) for lv in live_sub)
                           * _cios_products(12), 8 * pts_ok.numel() + B)
         if rounds == 1:

@@ -2,16 +2,23 @@
 
     python3 -m plutus_halo2_tpu_torch.block_sweep [--batch 1024] [--reps 5]
 
-Times the transcript, Fr pow, Fp pow, hinted decompression (fused with the
-1-round subgroup test) and aggregate subgroup kernels at the verifier's
-shapes (B rows; the Fp pow and decompression at B x 10 points) by device
-time (``utils.profiling.device_ms``), at the default block size
-(``ops._build.BLOCK_THREADS``; the row-layout kernels take BLOCK_THREADS //
+    python3 -m plutus_halo2_tpu_torch.block_sweep --only msm,decompress_fused
+
+Times the transcript, Fr pow, Fp pow, unfused hinted decompression and
+aggregate subgroup kernels at the verifier's shapes (B rows; the Fp pow
+and decompression at B x 10 points) by device time
+(``utils.profiling.device_ms``), at the default block size
+(``ops._build.BLOCK_THREADS``; the subgroup kernel takes BLOCK_THREADS //
 16 rows of 16 lanes per block) and at fixed sizes from 1 to 128 threads,
 checks that every size gives the default's output, and prints one JSON line
-per kernel with the device ms per size. The pairing kernel is swept over
-its lanes per row (16, 32) and rows per block (1, 2, 4, 8) at B and at
-the RLC group check's B / 8 rows. Then it times ``TorchVerifier.verify()`` in the default mode
+per kernel with the device ms per size. The lane-group kernels are swept
+over lanes per row and rows per block (0: the fewest that fill the SMs
+once), each setting's output checked against the default's: the pairing
+(16, 32 lanes x 1, 2, 4, 8 rows) at B and at the RLC group check's B / 8
+rows; the MSM (4, 8, 16, 32 lanes x 0, 1, 2, 4, 8 rows) at (B, 16) and at
+the RLC aggregation's (B / 4, 8); the fused decompress (the same grid) at
+(B, 10), one round. ``--only`` picks some of transcript, pow_fr, pow_fp,
+decompress, subgroup, pairing, msm, decompress_fused, verify. Then it times ``TorchVerifier.verify()`` in the default mode
 (y-hints, the aggregate subgroup test) on a B-proof batch of the committed
 simple_mul proof at the default block size and at one thread per block,
 alternated (1, default, default, 1, ...) in one process so that the
@@ -41,6 +48,9 @@ from .utils.profiling import device_ms
 SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
 PAIRING_LANES = (16, 32)
 PAIRING_ROWS = (1, 2, 4, 8)
+GROUP_LANES = (4, 8, 16, 32)  # the MSM's and the fused decompress kernel's lanes per row
+GROUP_ROWS = (0, 1, 2, 4, 8)  # and rows per block (0: from B)
+PARTS = ("transcript", "pow_fr", "pow_fp", "decompress", "subgroup", "pairing", "msm", "decompress_fused", "verify")
 # the squeeze lengths of simple_mul's transcript (models/layout.py)
 SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)
 
@@ -120,13 +130,38 @@ def _pairing_sweep(el, er, pp, reps: int):
                           "ms_by_lanes_x_rows": ms}))
 
 
+def _group_sweep(name: str, fn, kernel: str, lanes_attr: str, rows_attr: str, items: int, reps: int):
+    """Device ms of a lane-group kernel of cuda_curve per (lanes per row,
+    rows per block), each setting's output checked against the default's."""
+    default = getattr(cuda_curve, lanes_attr), getattr(cuda_curve, rows_attr)
+    want = fn()
+    ms = {}
+    try:
+        for lanes in GROUP_LANES:
+            for rows in GROUP_ROWS:
+                setattr(cuda_curve, lanes_attr, lanes)
+                setattr(cuda_curve, rows_attr, rows)
+                if not _same(fn(), want):
+                    raise SystemExit(f"block_sweep: {name} at {lanes} lanes, {rows} rows per block differs")
+                ms[f"{lanes}x{rows}"] = device_ms(fn, [kernel], reps)
+    finally:
+        setattr(cuda_curve, lanes_attr, default[0])
+        setattr(cuda_curve, rows_attr, default[1])
+    print(json.dumps({"kernel": name, "items": items, "default": f"{default[0]}x{default[1]}",
+                      "ms_by_lanes_x_rows": ms}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--verify-rounds", type=int, default=3, help="ABBA rounds of the verify() A/B")
+    ap.add_argument("--only", default=",".join(PARTS), help="comma-separated parts to run")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(PARTS):
+        raise SystemExit(f"block_sweep: --only takes some of {','.join(PARTS)}")
     if not torch.cuda.is_available():
         raise SystemExit("block_sweep: needs a CUDA device")
     dev, B = torch.device("cuda"), args.batch
@@ -154,12 +189,13 @@ def main(argv=None) -> int:
         ("transcript", B, "transcript_kernel", lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)),
         ("pow_fr", B, "pow_kernel", lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2)),
         ("pow_fp", 10 * B, "pow_kernel", lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2)),
-        ("decompress", 10 * B, "decompress_subgroup_kernel",
-         lambda: cuda_curve.decompress_hinted(raw, hints, sub_w)),
+        ("decompress", 10 * B, "decompress_kernel", lambda: cuda_curve.decompress_hinted(raw, hints)),
         ("subgroup", 10 * B, "subgroup_kernel", lambda: cuda_curve.aggregate_subgroup_check(pts, sub_w)),
     )
     default = _build.BLOCK_THREADS
     for name, n, kernel, fn in cases:
+        if name not in only:
+            continue
         _build.BLOCK_THREADS = default
         want = fn()
         default_ms = device_ms(fn, [kernel], args.reps)
@@ -172,8 +208,21 @@ def main(argv=None) -> int:
         print(json.dumps({"kernel": name, "items": n, "default_threads": default,
                           "default_ms": default_ms, "ms_by_threads": ms}))
     _build.BLOCK_THREADS = default
-    _pairing_sweep(el, er, pp, args.reps)
-    _verify_ab(B, args.verify_rounds)
+    if "pairing" in only:
+        _pairing_sweep(el, er, pp, args.reps)
+    if "msm" in only:
+        host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=16)] + [None]
+        tab = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in host])).to(dev)
+        for rows, K in ((B, 16), (B // 4, 8)):
+            pts_m = tab[torch.from_numpy(rng.integers(0, len(host), size=(rows, K))).to(dev)].contiguous()
+            sc_m = _canon(FR_SPEC, (rows, K), rng, dev)
+            _group_sweep(f"msm K={K}", lambda: cuda_curve.msm(pts_m, sc_m), "msm_kernel", "MSM_LANES", "MSM_ROWS",
+                         rows, args.reps)
+    if "decompress_fused" in only:
+        _group_sweep("decompress_fused", lambda: cuda_curve.decompress_hinted(raw, hints, sub_w),
+                     "decompress_subgroup_kernel", "DECOMPRESS_LANES", "DECOMPRESS_ROWS", 10 * B, args.reps)
+    if "verify" in only:
+        _verify_ab(B, args.verify_rounds)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])

@@ -1,9 +1,10 @@
-// Shared BLS12-381 G1 device code for the curve kernels (msm.cu,
-// decompress.cu, subgroup.cu): projective points over the kernel's Fp
-// domain (field.cuh), the complete RCB15 formulas (a = 0, b3 = 12), and the
-// per-row random-weighted aggregate subgroup test that both
-// plutus_halo2_tpu/ops/pallas_curve.py:367 (make_decompress_kernel, fused
-// variant) and :642 (make_subgroup_kernel) compute.
+// Shared BLS12-381 G1 device code for the curve kernels: projective points
+// over the kernel's Fp domain (field.cuh), one thread's complete RCB15
+// formulas (a = 0, b3 = 12), and the one-thread-per-point form of the
+// per-row random-weighted aggregate subgroup test that
+// plutus_halo2_tpu/ops/pallas_curve.py:642 (make_subgroup_kernel) computes,
+// run by subgroup.cu. The MSM and the fused decompress kernel run the lane-
+// group forms of group.cuh on top of this file.
 //
 // The aggregate test (the port of ops/curve.aggregate_subgroup_check):
 // per row and round, Q = sum_k w_k P_k with verifier-chosen weights

@@ -14,21 +14,26 @@
 // points (B, K, 3, 25) in the port's Montgomery domain, bit-identical to
 // ops/curve.decompress(..., y_hint=) on every point, valid or not, and
 // valid (B, K) bool. With weights (rounds, K) in [1, 2^16) it also returns
-// sub_ok (B,): the per-row aggregate subgroup test (curve.cuh) on the
-// points just decoded, still in registers.
+// sub_ok (B,): the per-row aggregate subgroup test on the points just
+// decoded, from shared memory.
 //
 // Bound: integer multiply throughput. Decoding is ~8 Fp products per
-// point; the fused test adds, per row, a 3-add table and the weight's
-// windows per point and two 64-bit z-ladders (63 doublings + 5 additions
-// each) per round — ~2,450 Fp products per row at K = 10, one round, each
-// a CIOS product of 300 32x32 multiplies.
+// point; the fused test adds, per row and round, the 3-add tables, the
+// window sums of the weights' signed 3-bit digits, one shared chain of 3
+// doublings a window, and two 64-bit z-ladders (63 doublings + 5 additions
+// each): ~1,000 Fp products per row at K = 10, one round, each a CIOS
+// product of 300 32x32 multiplies; a row's critical path is ~350 product
+// stages.
 //
 // Design: the unfused variant runs one thread per (row, point) in flat
-// blocks. The fused variant uses the row layout of msm.cu: a thread per
-// (row, point), K rounded up to a power of two lanes per row, a halving
-// tree in shared memory, lane 0 testing the aggregate (curve.cuh). Any
-// B >= 1 (the ragged edge is masked), 1 <= K <= 128, rounds 1 to 4.
-#include "curve.cuh"
+// blocks. The fused variant gives each row a group of `lanes` lanes
+// (group.cuh; 16 on the main path, two rows a warp; rows per block chosen
+// to fill the SMs once): one lane a point decodes into the row's tables in
+// shared memory, then the group runs the aggregate test
+// (group_aggregate_ok) as stages of Fp products spread over the lanes, the
+// rounds' ladders sharing stages. Any B >= 1 (the ragged edge is masked),
+// 1 <= K <= 128, rounds 1 to 4.
+#include "group.cuh"
 
 // Decode one compressed point. Returns valid; P is the identity for an
 // infinity encoding, else (x, y, 1) in the kernel's domain.
@@ -94,39 +99,63 @@ __global__ void decompress_kernel(const uint8_t* raw, const int64_t* hints, int6
   pt_store_port(pts + (size_t)i * 75, P);
 }
 
-__global__ void decompress_subgroup_kernel(const uint8_t* raw, const int64_t* hints,
-                                           const int* weights, int64_t* pts, uint8_t* valid,
-                                           uint8_t* sub_ok, int B, int K, int KP, int rounds) {
-  extern __shared__ uint32_t smem[];
-  Pt* part = reinterpret_cast<Pt*>(smem);
-  const int lane = threadIdx.x % KP;
-  const int row = blockIdx.x * (blockDim.x / KP) + threadIdx.x / KP;
-  const bool live = row < B;
-  Pt P;
-  pt_identity(P);
-  if (live && lane < K) {
-    const size_t i = (size_t)row * K + lane;
+__global__ void __launch_bounds__(256, 1) decompress_subgroup_kernel(const uint8_t* raw, const int64_t* hints,
+                                                                     const int* weights, int64_t* pts,
+                                                                     uint8_t* valid, uint8_t* sub_ok,
+                                                                     long long* phases, int B, int K, int rounds,
+                                                                     int lanes) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Group g = make_group(lanes);
+  const int slot = threadIdx.x / lanes;
+  const int row = blockIdx.x * (blockDim.x / lanes) + slot;
+  if (row >= B) return;  // the whole group leaves; only group barriers follow
+  uint32_t* tab = smem + (size_t)slot * AggLayout(K, rounds).words;
+  // phases (optional, (B, 4)): clock64() at the start, after decoding,
+  // after the window chain, at the end
+  long long* ph = (phases != nullptr && g.lane == 0) ? phases + (size_t)row * 4 : nullptr;
+  if (ph) ph[0] = clock64();
+#pragma unroll 1
+  for (int k = g.lane; k < K; k += g.G) {
+    const size_t i = (size_t)row * K + k;
+    Pt P;
     valid[i] = decode_point(P, raw + i * 48, hints + i * 25);
     pt_store_port(pts + i * 75, P);
+    uint32_t* e1 = tab + PT * k * AGG_HALF;  // entry 1 of point k's table
+    s_store(e1, P.x);
+    s_store(e1 + SLOT, P.y);
+    s_store(e1 + 2 * SLOT, P.z);
   }
-  const bool ok = row_aggregate_ok(part, P, live, lane, KP, K, weights, rounds);
-  if (lane == 0 && live) sub_ok[row] = ok;
+  g.sync();
+  if (ph) ph[1] = clock64();
+  const bool ok = group_aggregate_ok(g, tab, K, weights, rounds, ph ? ph + 2 : nullptr);
+  if (ph) ph[3] = clock64();
+  if (g.lane == 0) sub_ok[row] = ok;
 }
 
-// weights == nullptr (rounds == 0): the unfused variant, sub_ok untouched.
+// weights == nullptr (rounds == 0): the unfused variant (tpb threads per
+// block), sub_ok untouched; else the fused one, `lanes` (4, 8, 16 or 32)
+// per row, `rows` per block (0: one wave of blocks; group_rows), phases
+// nullptr or (B, 4) cycle marks.
 extern "C" int ph2_decompress(const uint8_t* raw, const int64_t* hints, const int* weights,
-                              int64_t* pts, uint8_t* valid, uint8_t* sub_ok, int B, int K,
-                              int rounds, int tpb, void* stream) {
-  if (B > 0 && K > 0) {
-    if (rounds == 0) {
-      const int n = B * K;
-      decompress_kernel<<<(n + tpb - 1) / tpb, tpb, 0, (cudaStream_t)stream>>>(raw, hints, pts,
-                                                                               valid, n);
-    } else {
-      const RowShape s = row_shape(B, K, tpb);
-      decompress_subgroup_kernel<<<s.blocks, s.threads, s.shmem, (cudaStream_t)stream>>>(
-          raw, hints, weights, pts, valid, sub_ok, B, K, s.KP, rounds);
-    }
+                              int64_t* pts, uint8_t* valid, uint8_t* sub_ok, long long* phases, int B, int K,
+                              int rounds, int tpb, int lanes, int rows, void* stream) {
+  if (B <= 0 || K <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rounds == 0) {
+    const int n = B * K;
+    decompress_kernel<<<(n + tpb - 1) / tpb, tpb, 0, st>>>(raw, hints, pts, valid, n);
+    return (int)cudaGetLastError();
   }
+  if (rounds < 1 || rounds > 4 || !valid_lanes(lanes))
+    return (int)cudaErrorInvalidValue;
+  const size_t row_bytes = sizeof(uint32_t) * AggLayout(K, rounds).words;
+  rows = group_rows(B, lanes, rows, row_bytes);
+  if (rows == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = rows * row_bytes;
+  cudaError_t e =
+      cudaFuncSetAttribute(decompress_subgroup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  decompress_subgroup_kernel<<<(B + rows - 1) / rows, rows * lanes, smem, st>>>(
+      raw, hints, weights, pts, valid, sub_ok, phases, B, K, rounds, lanes);
   return (int)cudaGetLastError();
 }

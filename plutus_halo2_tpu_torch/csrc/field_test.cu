@@ -37,3 +37,62 @@ extern "C" int ph2_mont_mul_fp(const int64_t* a, const int64_t* b, int64_t* out,
 extern "C" int ph2_mont_mul_fr(const int64_t* a, const int64_t* b, int64_t* out, int n, void* stream) {
   return launch_mont_mul<FrT>(a, b, out, n, stream);
 }
+
+// ---- latency probe of the Fp primitives -------------------------------------
+// Each thread runs `steps` dependent steps of one primitive on its own
+// values (x: 36 words per thread, canonical kernel-domain a, b, c); lane 0
+// of each warp records the clock64() cycles of the loop. Variants: 0 f_mul,
+// 1 f_mul2 (two independent products), 2 fp_mul_cc, 3 two fp_mul_cc,
+// 4 f_add, 5 fp_add_cc, 6 f_sub, 7 fp_sub_cc.
+template <int V>
+__global__ void fp_step_probe(const uint32_t* x, uint32_t* out, long long* cycles, int steps) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t a[12], b[12], c[12];
+#pragma unroll
+  for (int k = 0; k < 12; k++) {
+    a[k] = x[(size_t)i * 36 + k];
+    b[k] = x[(size_t)i * 36 + 12 + k];
+    c[k] = x[(size_t)i * 36 + 24 + k];
+  }
+  const long long t0 = clock64();
+#pragma unroll 1
+  for (int s = 0; s < steps; s++) {
+    if (V == 0) f_mul<FpT>(a, a, b);
+    if (V == 1) f_mul2<FpT>(a, a, b, c, c, b);
+    if (V == 2) fp_mul_cc(a, a, b);
+    if (V == 3) {
+      fp_mul_cc(a, a, b);
+      fp_mul_cc(c, c, b);
+    }
+    if (V == 4) f_add<FpT>(a, a, b);
+    if (V == 5) fp_add_cc(a, a, b);
+    if (V == 6) f_sub<FpT>(a, a, b);
+    if (V == 7) fp_sub_cc(a, a, b);
+  }
+  const long long t1 = clock64();
+#pragma unroll
+  for (int k = 0; k < 12; k++) {
+    out[(size_t)i * 24 + k] = a[k];
+    out[(size_t)i * 24 + 12 + k] = c[k];
+  }
+  if (threadIdx.x % 32 == 0) cycles[i / 32] = t1 - t0;
+}
+
+// blocks x (32 warps) threads; x holds 36 words a thread, out 24, cycles one a warp
+extern "C" int ph2_fp_step_probe(const uint32_t* x, uint32_t* out, long long* cycles, int blocks, int warps,
+                                 int steps, int variant, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 g(blocks), t(32 * warps);
+  switch (variant) {
+    case 0: fp_step_probe<0><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    case 1: fp_step_probe<1><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    case 2: fp_step_probe<2><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    case 3: fp_step_probe<3><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    case 4: fp_step_probe<4><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    case 5: fp_step_probe<5><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    case 6: fp_step_probe<6><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    case 7: fp_step_probe<7><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -264,56 +264,6 @@ DEV_NOINLINE void gcd_inv(uint32_t* r, const uint32_t* x) {
   f_mul<FpT>(r, is_one_plain(u) ? x1 : x2, r3);
 }
 
-// Two independent CIOS Montgomery products in one instruction stream: a
-// lane's second product hides the first one's carry-chain latency.
-DEV void f_mul2(uint32_t* r0, const uint32_t* a0, const uint32_t* b0, uint32_t* r1, const uint32_t* a1,
-                const uint32_t* b1) {
-  constexpr int NW = FpT::NW;
-  uint32_t t0[NW + 2], t1[NW + 2];
-#pragma unroll
-  for (int i = 0; i < NW + 2; i++) t0[i] = t1[i] = 0;
-#pragma unroll
-  for (int i = 0; i < NW; i++) {
-    uint64_t C0 = 0, C1 = 0;
-#pragma unroll
-    for (int j = 0; j < NW; j++) {
-      const uint64_t s0 = (uint64_t)a0[i] * b0[j] + t0[j] + C0;
-      const uint64_t s1 = (uint64_t)a1[i] * b1[j] + t1[j] + C1;
-      t0[j] = (uint32_t)s0;
-      t1[j] = (uint32_t)s1;
-      C0 = s0 >> 32;
-      C1 = s1 >> 32;
-    }
-    uint64_t s0 = (uint64_t)t0[NW] + C0, s1 = (uint64_t)t1[NW] + C1;
-    t0[NW] = (uint32_t)s0;
-    t1[NW] = (uint32_t)s1;
-    t0[NW + 1] = (uint32_t)(s0 >> 32);
-    t1[NW + 1] = (uint32_t)(s1 >> 32);
-    const uint32_t m0 = t0[0] * FpT::n0(), m1 = t1[0] * FpT::n0();
-    s0 = (uint64_t)m0 * FpT::mod(0) + t0[0];
-    s1 = (uint64_t)m1 * FpT::mod(0) + t1[0];
-    C0 = s0 >> 32;
-    C1 = s1 >> 32;
-#pragma unroll
-    for (int j = 1; j < NW; j++) {
-      s0 = (uint64_t)m0 * FpT::mod(j) + t0[j] + C0;
-      s1 = (uint64_t)m1 * FpT::mod(j) + t1[j] + C1;
-      t0[j - 1] = (uint32_t)s0;
-      t1[j - 1] = (uint32_t)s1;
-      C0 = s0 >> 32;
-      C1 = s1 >> 32;
-    }
-    s0 = (uint64_t)t0[NW] + C0;
-    s1 = (uint64_t)t1[NW] + C1;
-    t0[NW - 1] = (uint32_t)s0;
-    t1[NW - 1] = (uint32_t)s1;
-    t0[NW] = t0[NW + 1] + (uint32_t)(s0 >> 32);
-    t1[NW] = t1[NW + 1] + (uint32_t)(s1 >> 32);
-  }
-  f_reduce_once<FpT>(r0, t0);
-  f_reduce_once<FpT>(r1, t1);
-}
-
 // Run program `pid` (ops/pairing_program.py): its stages' items spread over
 // the group's lanes, then the staged outputs copied to dst. A stage holds
 // items of one kind. In a product stage every lane runs two products at
@@ -353,7 +303,7 @@ DEV_NOINLINE void run_program(const Run& r, int pid, uint32_t* dst) {
           f_zero<FpT>(a1);
           f_zero<FpT>(b1);
         }
-        f_mul2(a0, a0, b0, a1, a1, b1);
+        f_mul2<FpT>(a0, a0, b0, a1, a1, b1);
         if (d0 >= 0) store_slot(const_cast<uint32_t*>(slot_ptr(b, d0)), a0);
         if (d1 >= 0) store_slot(const_cast<uint32_t*>(slot_ptr(b, d1)), a1);
       }

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
            "subgroup.cu", "mma_probe.cu")
-HEADERS = ("field.cuh", "curve.cuh")
+HEADERS = ("field.cuh", "curve.cuh", "group.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
@@ -39,12 +40,13 @@ _I = ctypes.c_int
 SIGNATURES = {
     "ph2_mont_mul_fp": (_P, _P, _P, _I, _P),
     "ph2_mont_mul_fr": (_P, _P, _P, _I, _P),
+    "ph2_fp_step_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ph2_pow_fp": (_P, _P, _I, _P, _I, _I, _P),
     "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _P),
     "ph2_transcript": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
-    "ph2_msm": (_P, _P, _P, _I, _I, _I, _P),
+    "ph2_msm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ph2_decompress": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ph2_decompress": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ph2_subgroup": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
     "ph2_mma_int8_chain": (_P, _P, _P, _I, _I, _P),
@@ -190,6 +192,28 @@ def build_log() -> str:
     return _LIBRARY.log_path.read_text() if _LIBRARY.log_path and _LIBRARY.log_path.exists() else ""
 
 
+def kernel_resources(name: str) -> list[dict]:
+    """Registers, stack frame and spill bytes of each compiled entry function
+    whose mangled name contains `name`, from the build log's ``-Xptxas -v``
+    lines (empty before a build in this process)."""
+    out, cur = [], None
+    for line in build_log().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"function": m.group(1)} if name in m.group(1) else None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    return out
+
+
 def check(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -204,16 +228,20 @@ def stream_ptr():
 # Threads per block of the one-thread-per-item kernels (transcript, pow,
 # unfused decompress), read at each launch: within 6 % of the fastest size
 # for each of them at the verifier's shapes on an H100 (PERF.md; python3 -m
-# plutus_halo2_tpu_torch.block_sweep). The row-layout kernels (fused
-# decompress, subgroup) put max(1, BLOCK_THREADS // KP) rows of KP lanes in
-# a block, KP the row's point count rounded up to a power of two. The
-# pairing kernel takes its own lanes per row and rows per block
-# (cuda_pairing.LANES, ROWS_PER_BLOCK).
+# plutus_halo2_tpu_torch.block_sweep). The subgroup kernel puts
+# max(1, BLOCK_THREADS // KP) rows of KP lanes in a block, KP the row's
+# point count rounded up to a power of two. The lane-group kernels take
+# their own lanes per row and rows per block (cuda_curve.MSM_LANES,
+# DECOMPRESS_LANES, ...; cuda_pairing.LANES, ROWS_PER_BLOCK).
 BLOCK_THREADS = 64
 
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_or_none(t):
+    return None if t is None else ptr(t)
 
 
 def require(t, name: str, dtype, shape=None):

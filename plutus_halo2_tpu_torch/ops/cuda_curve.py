@@ -6,23 +6,37 @@ counters.
 ``make_msm_kernel``: B independent MSMs sum_k s_k P_k over K points. Points
 are (B, K, 3, 25) projective Montgomery limbs, scalars (B, K, 17) canonical
 Fr limbs, ``wbits`` the signed-window width as the Pallas kernel takes it
-(5 on the verifier's path, 4 for the stage probe's ``msmp``); the result is a (B, 3, 25) projective point whose representative
-may differ from the plain version's, so compare results in affine
-coordinates. The plain version is ``ops/curve.msm`` (the JAX package's
-``jc.msm``).
+(5 on the verifier's path, 4 for the stage probe's ``msmp``); the result is
+a (B, 3, 25) projective point. Its plain versions: ``ops/curve.msm_windowed``,
+the kernel's decomposition step for step, whose limbs the kernel's equal;
+and ``msm_plain``, ``ops/curve.msm`` (the JAX package's ``jc.msm``, the
+same limbs), which the wrapper runs on CPU tensors so that the CPU
+verifier's limbs stay the JAX package's; it sums in another order, so
+compare the kernel with it in affine coordinates.
 
 ``decompress_hinted`` replaces ``make_decompress_kernel`` (``:367``), both
 variants: hinted decompression of (B, K, 48) compressed points, and with
 weights also the per-row aggregate subgroup test on the decoded points.
 ``aggregate_subgroup_check`` replaces ``make_subgroup_kernel`` (``:642``):
 that test on (B, K, 3, 25) decoded points. Their plain versions are
-``ops/curve.decompress(..., y_hint=)`` and
-``ops/curve.aggregate_subgroup_check``. Points and valid flags are
-bit-identical to the plain version's on every row. The test's verdict
+``ops/curve.decompress(..., y_hint=)`` with
+``ops/curve.aggregate_subgroup_check_windowed`` (the fused kernel's
+decomposition), and ``ops/curve.aggregate_subgroup_check``. Points and
+valid flags are bit-identical to the plain version's on every row. The test's verdict
 depends only on the points and the weights, but on a row with a point off
 the curve (an invalid encoding) the complete formulas no longer add points
 and the verdict depends on the summation order: compare sub_ok on rows
-whose points are all valid, and valid & sub_ok everywhere."""
+whose points are all valid, and valid & sub_ok everywhere.
+
+The MSM and the fused decompress kernel give each row a group of lanes
+(``MSM_LANES``, ``DECOMPRESS_LANES``: 4, 8, 16 or 32) and put ``MSM_ROWS``
+/ ``DECOMPRESS_ROWS`` rows in a block (0: the fewest that fill the SMs
+once; ``csrc/group.cuh`` group_rows); all four are read at each launch,
+and ``python3 -m plutus_halo2_tpu_torch.block_sweep`` sweeps them. The
+widths are the fastest on an H100 at the main path's shapes: the MSM's 52
+window sums keep 32 lanes busy, at (1024, 16) and at (256, 8); the fused
+decompress kernel's rows are mostly ladder stages of 4-6 products, which
+run faster two rows to a warp at 1024 rows (PERF.md)."""
 
 from __future__ import annotations
 
@@ -32,6 +46,10 @@ from . import _build, curve
 from .limb import FP_SPEC, FR_SPEC
 
 MAX_K = 128  # points per row the row-layout kernels take
+MSM_LANES = 32
+MSM_ROWS = 0
+DECOMPRESS_LANES = 16
+DECOMPRESS_ROWS = 0
 
 
 def msm_plain(points, scalars):
@@ -46,7 +64,10 @@ def _check_k(K: int, name: str):
 MSM_WBITS = (4, 5)  # the Pallas kernel's widths: 64 windows / 9 entries, 52 / 17
 
 
-def msm(points, scalars, wbits: int = 5):
+def msm(points, scalars, wbits: int = 5, phases=None):
+    """points (B, K, 3, 25), scalars (B, K, 17) -> (B, 3, 25). `phases`, a
+    (B, 3) int64 CUDA tensor, receives each row's clock64() at the start,
+    before the doubling chain and at the end."""
     if wbits not in MSM_WBITS:
         raise ValueError(f"msm takes wbits in {MSM_WBITS}, got {wbits}")
     if points.device.type == "cpu":
@@ -55,10 +76,12 @@ def msm(points, scalars, wbits: int = 5):
     B, K = points.shape[:2]
     _build.require(scalars, "scalars", torch.int64, (B, K, FR_SPEC.L))
     _check_k(K, "msm")
+    if phases is not None:
+        _build.require(phases, "phases", torch.int64, (B, 3))
     out = torch.empty((B, 3, FP_SPEC.L), dtype=torch.int64, device=points.device)
     lib = _build.library()
-    _build.check(lib.ph2_msm(_build.ptr(points), _build.ptr(scalars), _build.ptr(out), B, K, wbits,
-                             _build.stream_ptr()), "ph2_msm")
+    _build.check(lib.ph2_msm(_build.ptr(points), _build.ptr(scalars), _build.ptr(out), _build.ptr_or_none(phases),
+                             B, K, wbits, MSM_LANES, MSM_ROWS, _build.stream_ptr()), "ph2_msm")
     msm.launches += 1
     return out
 
@@ -75,13 +98,15 @@ def decompress_hinted_plain(pt_raw, y_hints, weights=None):
     pts, valid = curve.decompress(pt_raw, y_hint=y_hints)
     if weights is None:
         return pts, valid
-    return pts, valid, curve.aggregate_subgroup_check(pts, weights)
+    return pts, valid, curve.aggregate_subgroup_check_windowed(pts, weights)
 
 
-def decompress_hinted(pt_raw, y_hints, weights=None):
+def decompress_hinted(pt_raw, y_hints, weights=None, phases=None):
     """pt_raw (B, K, 48) uint8, y_hints (B, K, 25) limbs -> (points
     (B, K, 3, 25), valid (B, K) bool), and with weights (rounds, K) also
-    sub_ok (B,) bool."""
+    sub_ok (B,) bool. With weights, `phases`, a (B, 4) int64 CUDA tensor,
+    receives each row's clock64() at the start, after decoding, after the
+    window chain and at the end."""
     if pt_raw.device.type == "cpu":
         return decompress_hinted_plain(pt_raw, y_hints, weights)
     _build.require(pt_raw, "pt_raw", torch.uint8, (None, None, 48))
@@ -95,12 +120,14 @@ def decompress_hinted(pt_raw, y_hints, weights=None):
     if weights is not None:
         w = _weights_on(weights, K, dev)
         sub_ok = torch.empty((B,), dtype=torch.bool, device=dev)
+        if phases is not None:
+            _build.require(phases, "phases", torch.int64, (B, 4))
     lib = _build.library()
     _build.check(lib.ph2_decompress(
-        _build.ptr(pt_raw), _build.ptr(y_hints), _build.ptr(w) if w is not None else None,
-        _build.ptr(pts), _build.ptr(valid), _build.ptr(sub_ok) if sub_ok is not None else None,
-        B, K, 0 if w is None else w.shape[0], _build.BLOCK_THREADS, _build.stream_ptr()),
-        "ph2_decompress")
+        _build.ptr(pt_raw), _build.ptr(y_hints), _build.ptr_or_none(w),
+        _build.ptr(pts), _build.ptr(valid), _build.ptr_or_none(sub_ok),
+        _build.ptr_or_none(phases if w is not None else None), B, K, 0 if w is None else w.shape[0],
+        _build.BLOCK_THREADS, DECOMPRESS_LANES, DECOMPRESS_ROWS, _build.stream_ptr()), "ph2_decompress")
     decompress_hinted.launches += 1
     return (pts, valid) if w is None else (pts, valid, sub_ok)
 

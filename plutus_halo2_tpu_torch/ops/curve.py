@@ -7,10 +7,15 @@ Renes-Costello-Batina 2015 (Algorithms 7 and 9): branch-free and
 identity-safe. The independent field multiplies of each formula run as one
 stacked call, so a point add costs four batched Montgomery products.
 
-``msm`` is the plain version of the MSM kernel (``csrc/msm.cu``): per-point
-4-bit windows over a 16-entry table, then one halving tree over K.
-``aggregate_subgroup_check`` is the plain version of the subgroup kernel
-(``csrc/subgroup.cu``), and ``decompress(..., y_hint=)`` with it the plain
+``msm`` (per-point 4-bit windows over a 16-entry table, then one halving
+tree over K: the JAX package's ``jc.msm``) is the second reference of the
+MSM kernel (``csrc/msm.cu``); ``msm_windowed`` is its plain version, the
+kernel's decomposition step for step (signed windows, a table of multiples
+per point, window sums over the row's points, one doubling chain per row),
+whose limbs the kernel's equal. ``aggregate_subgroup_check`` is the plain
+version of the subgroup kernel (``csrc/subgroup.cu``);
+``decompress(..., y_hint=)`` with ``aggregate_subgroup_check_windowed``
+(the same decomposition over the weights' 3-bit windows) is the plain
 version of the hinted decompression kernel (``csrc/decompress.cu``).
 """
 
@@ -177,6 +182,80 @@ def msm(points, scalars, nwin: int = 64):
     return tree_sum(mul(points, scalars, nwin))
 
 
+# ---------------------------------------------------------------------------
+# the MSM kernel's decomposition (csrc/msm.cu, group.cuh)
+# ---------------------------------------------------------------------------
+
+MSM_NWIN = {4: 64, 5: 52}  # signed windows of 4 / 5 bits over a 256-bit scalar
+
+
+def signed_recode(raw, half: int):
+    """Signed digits of window values raw (..., NWIN), LSB window first:
+    d = raw + carry, and d > half becomes d - 2 half with a carry into the
+    next window. The caller's top window must not carry."""
+    out, carry = [], torch.zeros_like(raw[..., 0])
+    for w in range(raw.shape[-1]):
+        d = raw[..., w] + carry
+        carry = (d > half).to(d.dtype)
+        out.append(d - 2 * half * carry)
+    return torch.stack(out, -1)
+
+
+def scalar_digits(scalars, wbits: int):
+    """(..., L_fr) canonical Fr limbs -> (..., NWIN) signed digits of wbits
+    bits, in [-2^(wbits-1), 2^(wbits-1)], LSB window first (the scalars are
+    below 2^255, so the top window never carries)."""
+    pos = torch.arange(MSM_NWIN[wbits], device=scalars.device) * wbits
+    lim = torch.nn.functional.pad(scalars, (0, 1))
+    two = lim[..., pos // 16] | (lim[..., pos // 16 + 1] << 16)
+    return signed_recode((two >> (pos % 16)) & ((1 << wbits) - 1), 1 << (wbits - 1))
+
+
+def multiples_table(p, half: int):
+    """(..., 3, L) -> (..., half, 3, L): the multiples 1 P .. half P, entry e
+    the sum of entries ceil(e/2) and floor(e/2) (the kernels build them in
+    levels of independent additions)."""
+    tab = [None, p]
+    for e in range(2, half + 1):
+        tab.append(add(tab[(e + 1) // 2], tab[e // 2]))
+    return torch.stack(tab[1:], -3)
+
+
+def window_sums(tab, digits):
+    """tab (..., K, half, 3, L), digits (..., K, J) -> (..., J, 3, L): for
+    each job j the sum over k in order of d tab[k, |d|] with d =
+    digits[k, j], from the identity, nothing added for d = 0."""
+    J = digits.shape[-1]
+    wsum = identity((*digits.shape[:-2], J), tab.device)
+    for k in range(digits.shape[-2]):
+        d = digits[..., k, :]
+        idx = (d.abs() - 1).clamp(min=0)
+        tab_k = tab[..., k, :, :, :]
+        sel = tab_k.gather(-3, idx[..., None, None].expand(*idx.shape, 3, tab.shape[-1]))
+        sel = select(d < 0, neg(sel), sel)
+        wsum = select(d != 0, add(wsum, sel), wsum)
+    return wsum
+
+
+def window_chain(wsum, wbits: int):
+    """(..., NWIN, 3, L) window sums -> (..., 3, L): sum_w 2^(wbits w)
+    wsum[w] by one doubling chain, MSB window first, from the top window's
+    sum."""
+    acc = wsum[..., -1, :, :]
+    for w in range(wsum.shape[-3] - 2, -1, -1):
+        for _ in range(wbits):
+            acc = double(acc)
+        acc = add(acc, wsum[..., w, :, :])
+    return acc
+
+
+def msm_windowed(points, scalars, wbits: int = 5):
+    """Batched MSM by the MSM kernel's decomposition: points (..., K, 3, L),
+    scalars (..., K, L_fr) canonical -> (..., 3, L), the kernel's limbs."""
+    tab = multiples_table(points, 1 << (wbits - 1))
+    return window_chain(window_sums(tab, scalar_digits(scalars, wbits)), wbits)
+
+
 def to_affine(p):
     """(..., 3, L) projective -> (x, y, inf): Montgomery affine coordinates
     (zero for the identity) and the identity flag."""
@@ -281,6 +360,26 @@ def aggregate_subgroup_check(pts, weights):
         ok_r = subgroup_check(q)
         ok = ok_r if ok is None else ok & ok_r
     return ok
+
+
+AGG_WBITS, AGG_NWIN = 3, 6  # signed 3-bit windows of a weight < 2^16 (the top one never carries)
+
+
+def aggregate_subgroup_check_windowed(pts, weights):
+    """The fused decompress kernel's aggregate test, as ``aggregate_subgroup_check``
+    but by its decomposition: per round, the weights' signed 3-bit windows
+    over the tables [1P..4P], the window sums over the row's points, one
+    chain of 3 doublings a window; then the endomorphism test of each
+    aggregate. pts (B, K, 3, L), weights (rounds, K) -> (B,) bool."""
+    B, K = pts.shape[:2]
+    w = check_weights(weights, K).to(pts.device)
+    R = w.shape[0]
+    shifts = torch.arange(AGG_NWIN, device=pts.device) * AGG_WBITS
+    dig = signed_recode((w[..., None] >> shifts) & ((1 << AGG_WBITS) - 1), 1 << (AGG_WBITS - 1))
+    digits = dig.permute(1, 0, 2).reshape(K, R * AGG_NWIN).expand(B, K, R * AGG_NWIN)
+    wsum = window_sums(multiples_table(pts, 1 << (AGG_WBITS - 1)), digits)
+    q = window_chain(wsum.reshape(B, R, AGG_NWIN, 3, pts.shape[-1]), AGG_WBITS)
+    return subgroup_check(q).all(-1)
 
 
 # ---------------------------------------------------------------------------

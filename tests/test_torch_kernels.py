@@ -1,8 +1,9 @@
 """Kernel-vs-plain parity of the CUDA kernels at small, ragged shapes (any
 B, any K): each kernel's wrapper on CUDA tensors against its plain PyTorch
-version on the same inputs, exactly (the MSM, at both window widths, in
-affine coordinates; the aggregate subgroup verdicts on rows whose points
-all decode; the tensor-core probe kernels bit for bit), and the verifier's
+version on the same inputs, exactly (the MSM, at both window widths, limb
+for limb against the plain version of its decomposition and in affine
+coordinates against the per-point MSM; the aggregate subgroup verdicts on
+rows whose points all decode; every lane-group width; the tensor-core probe kernels bit for bit), and the verifier's
 modes and verify_rlc on the card against the CPU.
 
 These need a CUDA device and nvcc (sm_90a) and skip without them; run them
@@ -81,17 +82,32 @@ def test_transcript_kernel(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("K", [1, 5, 33])
-def test_msm_kernel(dev, K):
-    rng = np.random.default_rng(K)
-    host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=K)] + [None]
+def _msm_rows(B, K, seed, dev):
+    """(B, K) points drawn from K random G1 points and the identity, and
+    random scalars with a zero and a q - 1 among them."""
+    rng = np.random.default_rng(seed)
+    n = min(K, 16)
+    host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=n)] + [None]
     tab = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in host])).to(dev)
-    B = 9
-    pts = tab[torch.from_numpy(rng.integers(0, K + 1, size=(B, K))).to(dev)].contiguous()
-    sc = _canon(FR_SPEC, (B, K), 6, dev)
-    got, want = tc.to_affine(cuda_curve.msm(pts, sc)), tc.to_affine(cuda_curve.msm_plain(pts, sc))
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    pts = tab[torch.from_numpy(rng.integers(0, n + 1, size=(B, K))).to(dev)].contiguous()
+    sc = _canon(FR_SPEC, (B, K), seed + 1, dev)
+    sc[-1, K // 2] = torch.from_numpy(FR_SPEC.encode(FR_SPEC.N - 1)).to(dev)
+    return pts, sc
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (17, 8), (129, 17), (1024, 16), (256, 8), (17, 128)])
+def test_msm_kernel(dev, B, K):
+    """Both window widths: the same limbs as the plain version of the
+    kernel's decomposition (msm_windowed), and in affine coordinates the
+    plain per-point MSM's; B ragged against the rows per block, K in whole
+    and ragged chunks of points (128: 32 chunks)."""
+    pts, sc = _msm_rows(B, K, B + K, dev)
+    ref = tc.to_affine(cuda_curve.msm_plain(pts, sc))
+    for wbits in (4, 5):
+        got = cuda_curve.msm(pts, sc, wbits=wbits)
+        assert torch.equal(got, tc.msm_windowed(pts, sc, wbits)), wbits
+        for g, w in zip(tc.to_affine(got), ref):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("K", [1, 5, 33])
@@ -109,6 +125,16 @@ def test_msm_kernel_at_4_bit_windows(dev, K):
     for wbits in (4, 5):
         for g, w in zip(tc.to_affine(cuda_curve.msm(pts, sc, wbits=wbits)), want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("lanes,rows", [(4, 0), (8, 3), (16, 0), (32, 1), (32, 5)])
+def test_msm_kernel_lane_groups(dev, lanes, rows, monkeypatch):
+    """Every lane-group width and rows-per-block setting gives the same limbs."""
+    pts, sc = _msm_rows(37, 9, 5, dev)
+    want = cuda_curve.msm(pts, sc)
+    monkeypatch.setattr(cuda_curve, "MSM_LANES", lanes)
+    monkeypatch.setattr(cuda_curve, "MSM_ROWS", rows)
+    assert torch.equal(cuda_curve.msm(pts, sc), want)
 
 
 def _probe_inputs(B, seed):
@@ -288,8 +314,8 @@ def _grid(B, K, seed, kinds):
     return raw, hints, row_kinds
 
 
-@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33)])
-@pytest.mark.parametrize("rounds", [None, 1, 2])
+@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33), (17, 128), (1024, 10)])
+@pytest.mark.parametrize("rounds", [None, 1, 2, 3, 4])
 def test_decompress_kernel(dev, B, K, rounds):
     raw, hints, kinds = _grid(B, K, 100 * B + K, ["go", "goe", "gox", "goex"])
     raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
@@ -305,6 +331,22 @@ def test_decompress_kernel(dev, B, K, rounds):
         assert torch.equal(got[2] & all_valid, want[2] & all_valid)
         member = torch.tensor(["e" not in row for row in kinds], device=dev)
         assert torch.equal(got[2][all_valid], member[all_valid])
+        old = tc.aggregate_subgroup_check(want[0], w)  # the second reference
+        assert torch.equal(got[2][all_valid], old[all_valid])
+
+
+@pytest.mark.parametrize("lanes,rows", [(4, 0), (8, 3), (16, 0), (32, 1), (32, 5)])
+def test_decompress_kernel_lane_groups(dev, lanes, rows, monkeypatch):
+    """Every lane-group width and rows-per-block setting gives the same
+    points, flags and verdicts."""
+    raw, hints, _kinds = _grid(37, 10, 3, ["go", "goe", "gox"])
+    raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
+    w = torch.randint(1, 1 << 16, (2, 10), generator=torch.Generator().manual_seed(2))
+    want = cuda_curve.decompress_hinted(raw_t, hints_t, w)
+    monkeypatch.setattr(cuda_curve, "DECOMPRESS_LANES", lanes)
+    monkeypatch.setattr(cuda_curve, "DECOMPRESS_ROWS", rows)
+    got = cuda_curve.decompress_hinted(raw_t, hints_t, w)
+    assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
 @pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33)])
