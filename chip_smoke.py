@@ -14,7 +14,7 @@ hand-written CUDA kernels, in phases:
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
   2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``,
      and the build log's registers, stack frame and spill bytes of the
-     lane-group MSM and fused decompress kernels are printed;
+     lane-group kernels (MSM, fused decompress, subgroup, pow) are printed;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
      PyTorch product on 2^16 random canonical pairs (exactly equal), the Fp
      kernel timed beside its bound;
@@ -28,7 +28,9 @@ hand-written CUDA kernels, in phases:
      slice's pairing sides, half of them true, and on the first 128 of
      them, the RLC group check's rows; decompression on the proof's
      points and crafted encodings, its subgroup verdicts on the rows whose
-     points all decode, also against the per-point aggregate test); the
+     points all decode, also against the per-point aggregate test; the
+     subgroup kernel against the plain version of its decomposition and
+     the per-point test); the
      three tensor-core probe kernels (int8 product,
      int8 and bf16 200-step chains) on the JAX probe's inputs at B = 1024
      and at B = 1, 17, 128, bit for bit, the two chains equal. Each kernel
@@ -50,7 +52,8 @@ hand-written CUDA kernels, in phases:
      verify_rlc on an honest batch, (e') with one corrupted hint. Each path's
      verdicts must equal its expected vector, and each path must launch
      every kernel it runs (counts set to 0 before the path, read after it;
-     the "launches" of the kernels line sum these first calls);
+     the "launches" of the kernels line sum these first calls); paths (a),
+     (b) and (e) are then timed, wall and stages, over three more calls;
   6. serving: a VerificationService (batch 1024, RLC group 8) answers 1100
      submissions, one full and one padded batch, and every future must
      resolve to its expected verdict;
@@ -334,10 +337,11 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if line.startswith("==") or any(k in line for k in ("entry function", "registers", "stack frame")):
             print(f"[build] {line.strip()}")
-    for name in ("msm_kernel", "decompress_subgroup_kernel"):  # the lane-group curve kernels
-        for r in _build.kernel_resources(name):
-            print(f"[build] {r['function']}: {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
-                  f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
+    lane_groups = {r["function"]: r for name in ("msm_kernel", "subgroup_kernel", "pow_kernel")
+                   for r in _build.kernel_resources(name)}  # subgroup_kernel names the fused decompress too
+    for r in lane_groups.values():
+        print(f"[build] {r['function']}: {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
+              f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
 
     def rand_canon(spec, shape):
         """Random canonical values < N as (shape..., L) limb tensors."""
@@ -426,6 +430,8 @@ def main() -> int:
         ("pow_fp", FP_SPEC, (B, n_pts), (FP_SPEC.N + 1) >> 2, cuda_field.fp_pow),
     ):
         x = rand_canon(spec, shape)
+        special = [spec.to_mont(0), spec.to_mont(1), spec.to_mont(spec.N - 1), spec.encode(1), spec.encode(spec.N - 1)]
+        x.view(-1, spec.L)[: len(special)] = torch.from_numpy(np.stack(special)).to(dev)
         got = kern(x, e)
         want, plain_ms = _plain(lambda: cuda_field.pow_plain(x, spec, e))
         torch.cuda.synchronize()
@@ -437,6 +443,8 @@ def main() -> int:
         record(name, "plutus_halo2_tpu_torch/csrc/pow.cu", "plutus_halo2_tpu/ops/pallas_field.py:32",
                limb_err(got, want), _times(lambda: kern(x, e), "pow_kernel", 10), plain_ms,
                _bound_ms(ops, 2 * 8 * x.numel()))
+    print(f"[kernel] pow: {cuda_field.POW_FR_LANES} lanes per Fr element, {cuda_field.POW_FP_LANES} per Fp "
+          f"element, {cuda_field.POW_ROWS} elements per block")
 
     # MSM at the multi-open shape (K = 16 after dedup): random G1 points
     # (one identity among them), random scalars (some zero, one q - 1)
@@ -619,9 +627,12 @@ def main() -> int:
         w_r = tc.subgroup_weights(n_pts, rounds, torch.Generator().manual_seed(SEED + rounds))
         ok_k = cuda_curve.aggregate_subgroup_check(pts_ok, w_r)
         ok_p, plain_ms = _plain(lambda: cuda_curve.aggregate_subgroup_check_plain(pts_ok, w_r))
+        ok_w = tc.aggregate_subgroup_check_windowed(pts_ok, w_r)
         torch.cuda.synchronize()
         if not torch.equal(ok_k, ok_p):
             _fail(f"subgroup kernel differs from the plain version at {rounds} rounds")
+        if not torch.equal(ok_k, ok_w):
+            _fail(f"subgroup kernel differs from the plain version of its decomposition at {rounds} rounds")
         if not torch.equal(ok_k, sub_member):
             _fail(f"subgroup verdicts differ from the rows' construction at {rounds} rounds")
         times = _times(lambda: cuda_curve.aggregate_subgroup_check(pts_ok, w_r), "subgroup_kernel", 20)
@@ -634,7 +645,8 @@ def main() -> int:
         else:
             print(f"[kernel] subgroup at 2 rounds: exact, {times[0]:.3f} ms device (plain {plain_ms:.3f} ms, "
                   f"bound {bound[0]:.4f} ms by {bound[1]})")
-    print(f"[kernel] subgroup rows: {int(sub_member.sum())} in G1, {int((~sub_member).sum())} not")
+    print(f"[kernel] subgroup rows: {int(sub_member.sum())} in G1, {int((~sub_member).sum())} not; "
+          f"{cuda_curve.SUBGROUP_LANES} lanes per row, rows per block {cuda_curve.SUBGROUP_ROWS or 'from B'}")
 
     # tensor-core probe kernels on tools/mxu_probe.py's inputs (default_rng(0),
     # integers in [0, 127)): bit for bit at the probe's width B and at ragged
@@ -771,6 +783,11 @@ def main() -> int:
     # (b) the hintless aggregate mode (__graft_entry__.entry()'s path)
     run_path("b hintless aggregate", lambda: default.verify(proof_t, pis_t, None, gen), expected,
              base + ("pow_fp", "subgroup"))
+    default.timings = {}
+    wall_b = timed(lambda: default.verify(proof_t, pis_t, None, gen))
+    print(f"[path] b: {B / wall_b:.1f} proofs/s (median of 3 verify() calls: {wall_b * 1e3:.1f} ms per batch)")
+    stage_table("b", default, wall_b)
+    default.timings = None
     # (c) the hintless mode with the subgroup test off
     run_path("c hintless, subgroup off", lambda: verifier.verify(proof_t, pis_t), expected,
              base + ("pow_fp",))

@@ -4,21 +4,22 @@
 
     python3 -m plutus_halo2_tpu_torch.block_sweep --only msm,decompress_fused
 
-Times the transcript, Fr pow, Fp pow, unfused hinted decompression and
-aggregate subgroup kernels at the verifier's shapes (B rows; the Fp pow
-and decompression at B x 10 points) by device time
+Times the transcript and unfused hinted decompression kernels at the
+verifier's shapes (B rows; decompression at B x 10 points) by device time
 (``utils.profiling.device_ms``), at the default block size
-(``ops._build.BLOCK_THREADS``; the subgroup kernel takes BLOCK_THREADS //
-16 rows of 16 lanes per block) and at fixed sizes from 1 to 128 threads,
+(``ops._build.BLOCK_THREADS``) and at fixed sizes from 1 to 128 threads,
 checks that every size gives the default's output, and prints one JSON line
 per kernel with the device ms per size. The lane-group kernels are swept
 over lanes per row and rows per block (0: the fewest that fill the SMs
 once), each setting's output checked against the default's: the pairing
 (16, 32 lanes x 1, 2, 4, 8 rows) at B and at the RLC group check's B / 8
 rows; the MSM (4, 8, 16, 32 lanes x 0, 1, 2, 4, 8 rows) at (B, 16) and at
-the RLC aggregation's (B / 4, 8); the fused decompress (the same grid) at
-(B, 10), one round. ``--only`` picks some of transcript, pow_fr, pow_fp,
-decompress, subgroup, pairing, msm, decompress_fused, verify. Then it times ``TorchVerifier.verify()`` in the default mode
+the RLC aggregation's (B / 4, 8); the fused decompress and the aggregate
+subgroup kernel (the same grid) at (B, 10), one round; the pow kernel
+(lanes per element: Fr 2, 4, 8, Fp 2, 4; x 4, 8, 16, 32 elements per
+block) at the Fr inversion's (B, 1) and the Fp square-root ladder's
+(B, 10). ``--only`` picks some of transcript, pow_fr, pow_fp, decompress,
+subgroup, pairing, msm, decompress_fused, verify. Then it times ``TorchVerifier.verify()`` in the default mode
 (y-hints, the aggregate subgroup test) on a B-proof batch of the committed
 simple_mul proof at the default block size and at one thread per block,
 alternated (1, default, default, 1, ...) in one process so that the
@@ -48,8 +49,10 @@ from .utils.profiling import device_ms
 SIZES = (1, 2, 4, 8, 16, 32, 64, 128)
 PAIRING_LANES = (16, 32)
 PAIRING_ROWS = (1, 2, 4, 8)
-GROUP_LANES = (4, 8, 16, 32)  # the MSM's and the fused decompress kernel's lanes per row
+GROUP_LANES = (4, 8, 16, 32)  # the MSM's, fused decompress and subgroup kernels' lanes per row
 GROUP_ROWS = (0, 1, 2, 4, 8)  # and rows per block (0: from B)
+POW_LANES = {"pow_fr": (2, 4, 8), "pow_fp": (2, 4)}  # lanes per element of the pow kernel
+POW_ROWS = (4, 8, 16, 32)  # and elements per block
 PARTS = ("transcript", "pow_fr", "pow_fp", "decompress", "subgroup", "pairing", "msm", "decompress_fused", "verify")
 # the squeeze lengths of simple_mul's transcript (models/layout.py)
 SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)
@@ -130,23 +133,25 @@ def _pairing_sweep(el, er, pp, reps: int):
                           "ms_by_lanes_x_rows": ms}))
 
 
-def _group_sweep(name: str, fn, kernel: str, lanes_attr: str, rows_attr: str, items: int, reps: int):
-    """Device ms of a lane-group kernel of cuda_curve per (lanes per row,
-    rows per block), each setting's output checked against the default's."""
-    default = getattr(cuda_curve, lanes_attr), getattr(cuda_curve, rows_attr)
+def _group_sweep(name: str, fn, kernel: str, lanes_attr: str, rows_attr: str, items: int, reps: int,
+                 module=cuda_curve, lanes_grid=GROUP_LANES, rows_grid=GROUP_ROWS):
+    """Device ms of a lane-group kernel (its lanes and rows constants in
+    `module`) per (lanes per row, rows per block), each setting's output
+    checked against the default's."""
+    default = getattr(module, lanes_attr), getattr(module, rows_attr)
     want = fn()
     ms = {}
     try:
-        for lanes in GROUP_LANES:
-            for rows in GROUP_ROWS:
-                setattr(cuda_curve, lanes_attr, lanes)
-                setattr(cuda_curve, rows_attr, rows)
+        for lanes in lanes_grid:
+            for rows in rows_grid:
+                setattr(module, lanes_attr, lanes)
+                setattr(module, rows_attr, rows)
                 if not _same(fn(), want):
                     raise SystemExit(f"block_sweep: {name} at {lanes} lanes, {rows} rows per block differs")
                 ms[f"{lanes}x{rows}"] = device_ms(fn, [kernel], reps)
     finally:
-        setattr(cuda_curve, lanes_attr, default[0])
-        setattr(cuda_curve, rows_attr, default[1])
+        setattr(module, lanes_attr, default[0])
+        setattr(module, rows_attr, default[1])
     print(json.dumps({"kernel": name, "items": items, "default": f"{default[0]}x{default[1]}",
                       "ms_by_lanes_x_rows": ms}))
 
@@ -187,10 +192,7 @@ def main(argv=None) -> int:
     pts = cuda_curve.decompress_hinted(raw, hints)[0]
     cases = (
         ("transcript", B, "transcript_kernel", lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)),
-        ("pow_fr", B, "pow_kernel", lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2)),
-        ("pow_fp", 10 * B, "pow_kernel", lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2)),
         ("decompress", 10 * B, "decompress_kernel", lambda: cuda_curve.decompress_hinted(raw, hints)),
-        ("subgroup", 10 * B, "subgroup_kernel", lambda: cuda_curve.aggregate_subgroup_check(pts, sub_w)),
     )
     default = _build.BLOCK_THREADS
     for name, n, kernel, fn in cases:
@@ -208,6 +210,16 @@ def main(argv=None) -> int:
         print(json.dumps({"kernel": name, "items": n, "default_threads": default,
                           "default_ms": default_ms, "ms_by_threads": ms}))
     _build.BLOCK_THREADS = default
+    for name, n, fn, lanes_attr in (
+        ("pow_fr", B, lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2), "POW_FR_LANES"),
+        ("pow_fp", 10 * B, lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2), "POW_FP_LANES"),
+    ):
+        if name in only:
+            _group_sweep(name, fn, "pow_kernel", lanes_attr, "POW_ROWS", n, args.reps, cuda_field,
+                         POW_LANES[name], POW_ROWS)
+    if "subgroup" in only:
+        _group_sweep("subgroup", lambda: cuda_curve.aggregate_subgroup_check(pts, sub_w), "subgroup_kernel",
+                     "SUBGROUP_LANES", "SUBGROUP_ROWS", B, args.reps)
     if "pairing" in only:
         _pairing_sweep(el, er, pp, args.reps)
     if "msm" in only:

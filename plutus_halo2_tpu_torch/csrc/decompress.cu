@@ -104,32 +104,12 @@ __global__ void __launch_bounds__(256, 1) decompress_subgroup_kernel(const uint8
                                                                      uint8_t* valid, uint8_t* sub_ok,
                                                                      long long* phases, int B, int K, int rounds,
                                                                      int lanes) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const Group g = make_group(lanes);
-  const int slot = threadIdx.x / lanes;
-  const int row = blockIdx.x * (blockDim.x / lanes) + slot;
-  if (row >= B) return;  // the whole group leaves; only group barriers follow
-  uint32_t* tab = smem + (size_t)slot * AggLayout(K, rounds).words;
-  // phases (optional, (B, 4)): clock64() at the start, after decoding,
-  // after the window chain, at the end
-  long long* ph = (phases != nullptr && g.lane == 0) ? phases + (size_t)row * 4 : nullptr;
-  if (ph) ph[0] = clock64();
-#pragma unroll 1
-  for (int k = g.lane; k < K; k += g.G) {
-    const size_t i = (size_t)row * K + k;
-    Pt P;
-    valid[i] = decode_point(P, raw + i * 48, hints + i * 25);
-    pt_store_port(pts + i * 75, P);
-    uint32_t* e1 = tab + PT * k * AGG_HALF;  // entry 1 of point k's table
-    s_store(e1, P.x);
-    s_store(e1 + SLOT, P.y);
-    s_store(e1 + 2 * SLOT, P.z);
-  }
-  g.sync();
-  if (ph) ph[1] = clock64();
-  const bool ok = group_aggregate_ok(g, tab, K, weights, rounds, ph ? ph + 2 : nullptr);
-  if (ph) ph[3] = clock64();
-  if (g.lane == 0) sub_ok[row] = ok;
+  aggregate_rows(
+      [&](Pt& P, size_t i) {
+        valid[i] = decode_point(P, raw + i * 48, hints + i * 25);
+        pt_store_port(pts + i * 75, P);
+      },
+      weights, sub_ok, phases, B, K, rounds, lanes);
 }
 
 // weights == nullptr (rounds == 0): the unfused variant (tpb threads per
@@ -146,16 +126,6 @@ extern "C" int ph2_decompress(const uint8_t* raw, const int64_t* hints, const in
     decompress_kernel<<<(n + tpb - 1) / tpb, tpb, 0, st>>>(raw, hints, pts, valid, n);
     return (int)cudaGetLastError();
   }
-  if (rounds < 1 || rounds > 4 || !valid_lanes(lanes))
-    return (int)cudaErrorInvalidValue;
-  const size_t row_bytes = sizeof(uint32_t) * AggLayout(K, rounds).words;
-  rows = group_rows(B, lanes, rows, row_bytes);
-  if (rows == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = rows * row_bytes;
-  cudaError_t e =
-      cudaFuncSetAttribute(decompress_subgroup_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  decompress_subgroup_kernel<<<(B + rows - 1) / rows, rows * lanes, smem, st>>>(
-      raw, hints, weights, pts, valid, sub_ok, phases, B, K, rounds, lanes);
-  return (int)cudaGetLastError();
+  return launch_aggregate_rows(decompress_subgroup_kernel, B, K, rounds, lanes, rows, st, raw, hints, weights,
+                               pts, valid, sub_ok, phases, B, K, rounds, lanes);
 }

@@ -1,6 +1,6 @@
 // Device field library for the Hopper kernels: the counterpart of
-// plutus_halo2_tpu/ops/pallas_core.py:109 (KField) and :385-444
-// (window_digits, pow_win_loop_tab).
+// plutus_halo2_tpu/ops/pallas_core.py:109 (KField); the window ladder of
+// :385-444 (pow_win_loop_tab) is pow.cu's, over lanes.cuh's product.
 //
 // Representation. An element is NW 32-bit words, little-endian, in the
 // Montgomery domain with R = 2^(32 NW): Fp has NW = 12 (R = 2^384), Fr has
@@ -404,32 +404,3 @@ DEV void load_words(uint32_t* r, const int64_t* limbs) {
   for (int i = 0; i < NW; i++)
     r[i] = (uint32_t)limbs[2 * i] | ((uint32_t)limbs[2 * i + 1] << 16);
 }
-
-// a^e, e given MSB-first as 4-bit window digits: the power table
-// [1, a, ..., a^15] lives in local memory; 4 squarings and one table
-// multiply per digit (the port of pow_win_loop_tab).
-template <class F, class Digit>
-DEV void pow_window(uint32_t* acc, const uint32_t* a, Digit digit, int nd) {
-  uint32_t tab[16][F::NW];
-  f_one<F>(tab[0]);
-  f_copy<F>(tab[1], a);
-#pragma unroll 1
-  for (int k = 2; k < 16; k++) f_mul<F>(tab[k], tab[k - 1], a);
-  f_copy<F>(acc, tab[digit(0)]);
-#pragma unroll 1
-  for (int w = 1; w < nd; w++) {
-#pragma unroll 1
-    for (int s = 0; s < 4; s++) f_mul<F>(acc, acc, acc);
-    f_mul<F>(acc, acc, tab[digit(w)]);
-  }
-}
-
-// Digit getter over a constant exponent held as NW words (MSB-first).
-template <int NWE>
-struct WordDigits {
-  const uint32_t* e;
-  DEV int operator()(int w) const {
-    const int bit = 4 * (8 * NWE - 1 - w);  // low bit of digit w
-    return (e[bit >> 5] >> (bit & 31)) & 0xf;
-  }
-};

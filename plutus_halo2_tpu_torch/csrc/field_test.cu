@@ -11,7 +11,7 @@
 // 1,152 and Fr 4 * 128 = 512 32x32 word multiplies.
 //
 // Design: one thread per element.
-#include "field.cuh"
+#include "lanes.cuh"
 
 template <class F>
 __global__ void mont_mul_kernel(const int64_t* a, const int64_t* b, int64_t* out, int n) {
@@ -92,6 +92,79 @@ extern "C" int ph2_fp_step_probe(const uint32_t* x, uint32_t* out, long long* cy
     case 5: fp_step_probe<5><<<g, t, 0, s>>>(x, out, cycles, steps); break;
     case 6: fp_step_probe<6><<<g, t, 0, s>>>(x, out, cycles, steps); break;
     case 7: fp_step_probe<7><<<g, t, 0, s>>>(x, out, cycles, steps); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- latency probe of the lane-split product --------------------------------
+// Each element runs `steps` dependent products acc = acc b on its own values
+// (x: 2 NW words an element, canonical kernel-domain acc and b), on one
+// thread (T = 1, f_mul) or on a group of T lanes (lanes_gather, then
+// f_mul_lanes: a squaring step of pow.cu); out: NW words an element; lane 0
+// of each warp records the clock64() cycles of the loop.
+template <class F, int T>
+__global__ void lanes_step_probe(const uint32_t* x, uint32_t* out, long long* cycles, int steps) {
+  constexpr int NW = F::NW;
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) / T;
+  const uint32_t* src = x + (size_t)e * 2 * NW;
+  long long t0, t1;
+  if constexpr (T == 1) {
+    uint32_t a[NW], b[NW];
+#pragma unroll
+    for (int k = 0; k < NW; k++) {
+      a[k] = src[k];
+      b[k] = src[NW + k];
+    }
+    t0 = clock64();
+#pragma unroll 1
+    for (int s = 0; s < steps; s++) f_mul<F>(a, a, b);
+    t1 = clock64();
+#pragma unroll
+    for (int k = 0; k < NW; k++) out[(size_t)e * NW + k] = a[k];
+  } else {
+    constexpr int S = NW / T;
+    const Lanes<F, T> g(threadIdx.x % T);
+    uint32_t acc[S], b[S], full[NW];
+#pragma unroll
+    for (int k = 0; k < S; k++) {
+      acc[k] = src[g.l * S + k];
+      b[k] = src[NW + g.l * S + k];
+    }
+    t0 = clock64();
+#pragma unroll 1
+    for (int s = 0; s < steps; s++) {
+      lanes_gather<F, T>(full, acc, g);
+      f_mul_lanes<F, T>(acc, full, b, g);
+    }
+    t1 = clock64();
+#pragma unroll
+    for (int k = 0; k < S; k++) out[(size_t)e * NW + g.l * S + k] = acc[k];
+  }
+  if (threadIdx.x % 32 == 0) cycles[(blockIdx.x * blockDim.x + threadIdx.x) / 32] = t1 - t0;
+}
+
+template <class F, int T>
+static void launch_lanes_probe(const uint32_t* x, uint32_t* out, long long* cycles, int blocks, int warps,
+                               int steps, cudaStream_t s) {
+  lanes_step_probe<F, T><<<blocks, 32 * warps, 0, s>>>(x, out, cycles, steps);
+}
+
+// blocks x (32 warps) threads; field 0 Fp, 1 Fr; lanes 1 (f_mul), 2, 4 or
+// 8 (Fr only) a product; x holds 2 NW words an element (32 warps / lanes
+// elements a block), out NW, cycles one a warp
+extern "C" int ph2_lanes_step_probe(const uint32_t* x, uint32_t* out, long long* cycles, int blocks, int warps,
+                                    int steps, int field, int lanes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int key = 10 * field + lanes;
+  switch (key) {
+    case 1: launch_lanes_probe<FpT, 1>(x, out, cycles, blocks, warps, steps, s); break;
+    case 2: launch_lanes_probe<FpT, 2>(x, out, cycles, blocks, warps, steps, s); break;
+    case 4: launch_lanes_probe<FpT, 4>(x, out, cycles, blocks, warps, steps, s); break;
+    case 11: launch_lanes_probe<FrT, 1>(x, out, cycles, blocks, warps, steps, s); break;
+    case 12: launch_lanes_probe<FrT, 2>(x, out, cycles, blocks, warps, steps, s); break;
+    case 14: launch_lanes_probe<FrT, 4>(x, out, cycles, blocks, warps, steps, s); break;
+    case 18: launch_lanes_probe<FrT, 8>(x, out, cycles, blocks, warps, steps, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
-// G1 arithmetic on a row's lane group, shared by the MSM kernel (msm.cu)
-// and the fused decompress kernel (decompress.cu).
+// G1 arithmetic on a row's lane group, shared by the MSM kernel (msm.cu),
+// the fused decompress kernel (decompress.cu) and the subgroup kernel
+// (subgroup.cu).
 //
 // A row of work belongs to a group of G lanes (G divides 32; the lanes of
 // one warp, synchronised by __syncwarp on the group's mask) and to its
@@ -498,10 +499,13 @@ DEV void group_window_chain(const Group& g, uint32_t* scratch, uint32_t* acc, co
 }
 
 // ---- the aggregate subgroup test --------------------------------------------
-// Per row and round, Q = sum_k w_k P_k with weights w_k in [1, 2^16) (signed
+// The port of ops/curve.aggregate_subgroup_check: per row and round,
+// Q = sum_k w_k P_k with verifier-chosen weights w_k in [1, 2^16) (signed
 // 3-bit windows over the 5-entry tables [0P..4P], one chain of 3
-// doublings a window), then P in G1 <=> phi(P) == [z^2 - 1] P, the
-// identity a member (curve.cuh).
+// doublings a window), then Q in G1 <=> phi(Q) == [z^2 - 1] Q with
+// phi(x, y) = (beta x, y) (Bowe 2019), the identity counting as a member.
+// The verdict depends only on the points and the weights: Q is the same
+// point whichever way it is summed, and the test is projective-invariant.
 
 constexpr int AGG_WBITS = 3, AGG_NWIN = 6, AGG_HALF = 4;
 
@@ -622,4 +626,55 @@ DEV bool group_aggregate_ok(const Group& g, uint32_t* row, int K, const int* wei
   for (int r = 0; r < R; r++) ok = ok && okw[r] != 0;
   g.sync();  // the caller may reuse the row
   return ok;
+}
+
+// The body of a kernel that gives each of B rows of K points a group of
+// `lanes` lanes and the row's AggLayout(K, rounds) in shared memory: one
+// lane a point makes point i = row K + k by load(P, i) into entry 1 of its
+// table, then the group runs group_aggregate_ok and lane 0 writes the
+// verdict to ok_out[row]. phases (optional, (B, 4)): clock64() at the
+// start, after the loads, after the window chain, at the end.
+template <class Load>
+DEV void aggregate_rows(Load load, const int* weights, uint8_t* ok_out, long long* phases, int B, int K,
+                        int rounds, int lanes) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const Group g = make_group(lanes);
+  const int slot = threadIdx.x / lanes;
+  const int row = blockIdx.x * (blockDim.x / lanes) + slot;
+  if (row >= B) return;  // the whole group leaves; only group barriers follow
+  uint32_t* tab = smem + (size_t)slot * AggLayout(K, rounds).words;
+  long long* ph = (phases != nullptr && g.lane == 0) ? phases + (size_t)row * 4 : nullptr;
+  if (ph) ph[0] = clock64();
+#pragma unroll 1
+  for (int k = g.lane; k < K; k += g.G) {
+    Pt P;
+    load(P, (size_t)row * K + k);
+    uint32_t* e1 = tab + PT * k * AGG_HALF;
+    s_store(e1, P.x);
+    s_store(e1 + SLOT, P.y);
+    s_store(e1 + 2 * SLOT, P.z);
+  }
+  g.sync();
+  if (ph) ph[1] = clock64();
+  const bool ok = group_aggregate_ok(g, tab, K, weights, rounds, ph ? ph + 2 : nullptr);
+  if (ph) ph[3] = clock64();
+  if (g.lane == 0) ok_out[row] = ok;
+}
+
+// Launches `kernel`, a kernel over aggregate_rows, on B rows of K points
+// and `rounds` rounds: `lanes` (4, 8, 16 or 32) a row, `rows` a block (0:
+// one wave of blocks; group_rows). cudaErrorInvalidValue where the
+// arguments are out of range or not one row fits a block.
+template <class Kernel, class... Args>
+static inline int launch_aggregate_rows(Kernel* kernel, int B, int K, int rounds, int lanes, int rows,
+                                        cudaStream_t st, Args... args) {
+  if (rounds < 1 || rounds > 4 || !valid_lanes(lanes)) return (int)cudaErrorInvalidValue;
+  const size_t row_bytes = sizeof(uint32_t) * AggLayout(K, rounds).words;
+  rows = group_rows(B, lanes, rows, row_bytes);
+  if (rows == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = rows * row_bytes;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(B + rows - 1) / rows, rows * lanes, smem, st>>>(args...);
+  return (int)cudaGetLastError();
 }

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
            "subgroup.cu", "mma_probe.cu")
-HEADERS = ("field.cuh", "curve.cuh", "group.cuh")
+HEADERS = ("field.cuh", "lanes.cuh", "curve.cuh", "group.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
@@ -41,13 +41,14 @@ SIGNATURES = {
     "ph2_mont_mul_fp": (_P, _P, _P, _I, _P),
     "ph2_mont_mul_fr": (_P, _P, _P, _I, _P),
     "ph2_fp_step_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "ph2_pow_fp": (_P, _P, _I, _P, _I, _I, _P),
-    "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _P),
+    "ph2_lanes_step_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ph2_pow_fp": (_P, _P, _I, _P, _I, _I, _I, _P),
+    "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _I, _P),
     "ph2_transcript": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
     "ph2_msm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_decompress": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "ph2_subgroup": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ph2_subgroup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
     "ph2_mma_int8_chain": (_P, _P, _P, _I, _I, _P),
     "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _P),
@@ -172,8 +173,9 @@ class _Library:
             else:
                 os.replace(tmp, lib_path)
         self.log_path.write_text("".join(log))
-        if failed:
-            raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(log)[-6000:])
+        if failed:  # the failed steps' own output first
+            ordered = sorted(log, key=lambda e: e.split(" ", 2)[1] not in failed)
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "".join(ordered)[:6000])
 
 
 _LIBRARY = _Library()
@@ -225,14 +227,13 @@ def stream_ptr():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-# Threads per block of the one-thread-per-item kernels (transcript, pow,
+# Threads per block of the one-thread-per-item kernels (transcript,
 # unfused decompress), read at each launch: within 6 % of the fastest size
 # for each of them at the verifier's shapes on an H100 (PERF.md; python3 -m
-# plutus_halo2_tpu_torch.block_sweep). The subgroup kernel puts
-# max(1, BLOCK_THREADS // KP) rows of KP lanes in a block, KP the row's
-# point count rounded up to a power of two. The lane-group kernels take
-# their own lanes per row and rows per block (cuda_curve.MSM_LANES,
-# DECOMPRESS_LANES, ...; cuda_pairing.LANES, ROWS_PER_BLOCK).
+# plutus_halo2_tpu_torch.block_sweep). The lane-group kernels take their
+# own lanes per row and rows per block (cuda_curve.MSM_LANES,
+# DECOMPRESS_LANES, SUBGROUP_LANES, ...; cuda_field.POW_FP_LANES,
+# POW_FR_LANES, POW_ROWS; cuda_pairing.LANES, ROWS_PER_BLOCK).
 BLOCK_THREADS = 64
 
 

@@ -20,23 +20,27 @@ weights also the per-row aggregate subgroup test on the decoded points.
 ``aggregate_subgroup_check`` replaces ``make_subgroup_kernel`` (``:642``):
 that test on (B, K, 3, 25) decoded points. Their plain versions are
 ``ops/curve.decompress(..., y_hint=)`` with
-``ops/curve.aggregate_subgroup_check_windowed`` (the fused kernel's
-decomposition), and ``ops/curve.aggregate_subgroup_check``. Points and
-valid flags are bit-identical to the plain version's on every row. The test's verdict
+``ops/curve.aggregate_subgroup_check_windowed`` (both kernels'
+decomposition of the test), and ``ops/curve.aggregate_subgroup_check``
+(the JAX package's algorithm: ``aggregate_subgroup_check_plain``, which
+the wrapper runs on CPU tensors, so that the CPU verifier's verdicts stay
+the JAX package's). Points and valid flags are bit-identical to the plain
+version's on every row. The test's verdict
 depends only on the points and the weights, but on a row with a point off
 the curve (an invalid encoding) the complete formulas no longer add points
 and the verdict depends on the summation order: compare sub_ok on rows
 whose points are all valid, and valid & sub_ok everywhere.
 
-The MSM and the fused decompress kernel give each row a group of lanes
-(``MSM_LANES``, ``DECOMPRESS_LANES``: 4, 8, 16 or 32) and put ``MSM_ROWS``
-/ ``DECOMPRESS_ROWS`` rows in a block (0: the fewest that fill the SMs
-once; ``csrc/group.cuh`` group_rows); all four are read at each launch,
-and ``python3 -m plutus_halo2_tpu_torch.block_sweep`` sweeps them. The
-widths are the fastest on an H100 at the main path's shapes: the MSM's 52
-window sums keep 32 lanes busy, at (1024, 16) and at (256, 8); the fused
-decompress kernel's rows are mostly ladder stages of 4-6 products, which
-run faster two rows to a warp at 1024 rows (PERF.md)."""
+The MSM, the fused decompress kernel and the subgroup kernel give each
+row a group of lanes (``MSM_LANES``, ``DECOMPRESS_LANES``,
+``SUBGROUP_LANES``: 4, 8, 16 or 32) and put ``MSM_ROWS`` /
+``DECOMPRESS_ROWS`` / ``SUBGROUP_ROWS`` rows in a block (0: the fewest
+that fill the SMs once; ``csrc/group.cuh`` group_rows); all six are read
+at each launch, and ``python3 -m plutus_halo2_tpu_torch.block_sweep``
+sweeps them. The widths are the fastest on an H100 at the main path's
+shapes: the MSM's 52 window sums keep 32 lanes busy, at (1024, 16) and at
+(256, 8); the aggregate test's rows are mostly ladder stages of 4-6
+products, which run faster two rows to a warp at 1024 rows (PERF.md)."""
 
 from __future__ import annotations
 
@@ -50,6 +54,8 @@ MSM_LANES = 32
 MSM_ROWS = 0
 DECOMPRESS_LANES = 16
 DECOMPRESS_ROWS = 0
+SUBGROUP_LANES = 16
+SUBGROUP_ROWS = 0
 
 
 def msm_plain(points, scalars):
@@ -139,19 +145,23 @@ def aggregate_subgroup_check_plain(points, weights):
     return curve.aggregate_subgroup_check(points, weights)
 
 
-def aggregate_subgroup_check(points, weights):
+def aggregate_subgroup_check(points, weights, phases=None):
     """points (B, K, 3, 25) projective Montgomery, weights (rounds, K) in
-    [1, 2^16) -> (B,) bool."""
+    [1, 2^16) -> (B,) bool. `phases`, a (B, 4) int64 CUDA tensor, receives
+    each row's clock64() at the start, after the loads, after the window
+    chain and at the end."""
     if points.device.type == "cpu":
         return aggregate_subgroup_check_plain(points, weights)
     _build.require(points, "points", torch.int64, (None, None, 3, FP_SPEC.L))
     B, K = points.shape[:2]
     _check_k(K, "subgroup")
     w = _weights_on(weights, K, points.device)
+    if phases is not None:
+        _build.require(phases, "phases", torch.int64, (B, 4))
     ok = torch.empty((B,), dtype=torch.bool, device=points.device)
     lib = _build.library()
-    _build.check(lib.ph2_subgroup(_build.ptr(points), _build.ptr(w), _build.ptr(ok), B, K,
-                                  w.shape[0], _build.BLOCK_THREADS, _build.stream_ptr()),
+    _build.check(lib.ph2_subgroup(_build.ptr(points), _build.ptr(w), _build.ptr(ok), _build.ptr_or_none(phases),
+                                  B, K, w.shape[0], SUBGROUP_LANES, SUBGROUP_ROWS, _build.stream_ptr()),
                  "ph2_subgroup")
     aggregate_subgroup_check.launches += 1
     return ok

@@ -8,6 +8,16 @@ the root of the pooled batch inversion (exponent q - 2, width 1) and as the
 Fp square-root ladder of hintless decompression (exponent (p + 1) / 4,
 one element per proof point).
 
+The pow kernel gives each element a group of lanes that share each
+product of its ladder (``csrc/lanes.cuh``: CIOS with the multiplier's
+words broadcast by shuffles and the carries resolved once a product by a
+carry-lookahead over the group): ``POW_FP_LANES`` (2 or 4) for Fp,
+``POW_FR_LANES`` (2, 4 or 8) for Fr, ``POW_ROWS`` elements a block (1 to
+256 / lanes). All three are read at each launch, and ``python3 -m
+plutus_halo2_tpu_torch.block_sweep --only pow_fp,pow_fr`` sweeps them. The
+settings are the fastest on an H100 at the verifier's shapes: 4 lanes for
+both fields, 8 elements a block (PERF.md).
+
 Each wrapper takes the port's int64 16-bit-limb Montgomery tensors. A CPU
 tensor goes to the plain version; a CUDA tensor goes to the kernel, or the
 wrapper raises."""
@@ -18,6 +28,10 @@ import torch
 
 from . import _build
 from .limb import FP_SPEC, FR_SPEC, FieldSpec, mont_mul, mont_pow_static, window_digits
+
+POW_FP_LANES = 4
+POW_FR_LANES = 4
+POW_ROWS = 8
 
 
 def pow_plain(x, spec: FieldSpec, exponent: int):
@@ -41,14 +55,14 @@ def _digits(exponent: int, device) -> torch.Tensor:
     return d
 
 
-def _pow(fn: str, spec: FieldSpec, x, exponent: int):
+def _pow(fn: str, spec: FieldSpec, x, exponent: int, lanes: int):
     _build.require(x, "x", torch.int64, (*x.shape[:-1], spec.L))
     out = torch.empty_like(x)
     d = _digits(exponent, x.device)
     n = x.numel() // spec.L
     lib = _build.library()
     _build.check(getattr(lib, fn)(_build.ptr(x), _build.ptr(out), n, _build.ptr(d), d.numel(),
-                                  _build.BLOCK_THREADS, _build.stream_ptr()), fn)
+                                  lanes, POW_ROWS, _build.stream_ptr()), fn)
     return out
 
 
@@ -56,7 +70,7 @@ def fr_pow(x, exponent: int):
     """x^exponent over Fr for (..., 17) Montgomery limbs."""
     if x.device.type == "cpu":
         return pow_plain(x, FR_SPEC, exponent)
-    out = _pow("ph2_pow_fr", FR_SPEC, x, exponent)
+    out = _pow("ph2_pow_fr", FR_SPEC, x, exponent, POW_FR_LANES)
     fr_pow.launches += 1
     return out
 
@@ -68,7 +82,7 @@ def fp_pow(x, exponent: int):
     """x^exponent over Fp for (..., 25) Montgomery limbs."""
     if x.device.type == "cpu":
         return pow_plain(x, FP_SPEC, exponent)
-    out = _pow("ph2_pow_fp", FP_SPEC, x, exponent)
+    out = _pow("ph2_pow_fp", FP_SPEC, x, exponent, POW_FP_LANES)
     fp_pow.launches += 1
     return out
 

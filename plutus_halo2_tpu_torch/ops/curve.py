@@ -12,11 +12,12 @@ tree over K: the JAX package's ``jc.msm``) is the second reference of the
 MSM kernel (``csrc/msm.cu``); ``msm_windowed`` is its plain version, the
 kernel's decomposition step for step (signed windows, a table of multiples
 per point, window sums over the row's points, one doubling chain per row),
-whose limbs the kernel's equal. ``aggregate_subgroup_check`` is the plain
-version of the subgroup kernel (``csrc/subgroup.cu``);
-``decompress(..., y_hint=)`` with ``aggregate_subgroup_check_windowed``
+whose limbs the kernel's equal. ``aggregate_subgroup_check`` (the JAX
+package's algorithm) is the plain version of the subgroup kernel
+(``csrc/subgroup.cu``) on the CPU route; ``aggregate_subgroup_check_windowed``
 (the same decomposition over the weights' 3-bit windows) is the plain
-version of the hinted decompression kernel (``csrc/decompress.cu``).
+version of that kernel's decomposition, and with ``decompress(...,
+y_hint=)`` of the hinted decompression kernel (``csrc/decompress.cu``).
 """
 
 from __future__ import annotations
@@ -366,7 +367,7 @@ AGG_WBITS, AGG_NWIN = 3, 6  # signed 3-bit windows of a weight < 2^16 (the top o
 
 
 def aggregate_subgroup_check_windowed(pts, weights):
-    """The fused decompress kernel's aggregate test, as ``aggregate_subgroup_check``
+    """The subgroup and fused decompress kernels' aggregate test, as ``aggregate_subgroup_check``
     but by its decomposition: per round, the weights' signed 3-bit windows
     over the tables [1P..4P], the window sums over the row's points, one
     chain of 3 doublings a window; then the endomorphism test of each

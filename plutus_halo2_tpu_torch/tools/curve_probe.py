@@ -1,5 +1,7 @@
 """Probe of the lane-group curve kernels (``csrc/msm.cu``,
-``csrc/decompress.cu``) and of the Fp primitives under them, on one GPU.
+``csrc/decompress.cu``, ``csrc/subgroup.cu``), of the Fp primitives under
+them and of the lane-split product of the pow kernel (``csrc/lanes.cuh``),
+on one GPU.
 
     python3 -m plutus_halo2_tpu_torch.tools.curve_probe [--batch 1024]
 
@@ -10,12 +12,19 @@ Prints one JSON line per measurement:
    fp_mul_cc, two fp_mul_cc, f_add, fp_add_cc, f_sub, fp_sub_cc; median
    over the warps) with 1 and with 8 warps on every SM; each PTX
    carry-chain variant's outputs must equal its counterpart's;
-2. ``msm``: at (B, 16) and at the RLC aggregation's (B / 4, 8), both window
+2. ``lanes``: the cycles of one dependent product of each field, on one
+   thread (``f_mul``) and split over T lanes (a squaring step of the pow
+   kernel: ``lanes_gather``, then ``f_mul_lanes``; Fp T = 2, 4, Fr T = 2,
+   4, 8), with 1 and with 8 warps on every SM; every split product's
+   outputs must equal ``f_mul``'s;
+3. ``msm``: at (B, 16) and at the RLC aggregation's (B / 4, 8), both window
    widths, the kernel's phases in SM cycles from its ``clock64()`` marks
    (median row: the tables and window sums, the chain) and the chain's
    cycles per product stage (2 per doubling and per addition);
-3. ``decompress``: at (B, 10), 1 and 2 rounds: decoding, the window part
+4. ``decompress``: at (B, 10), 1 and 2 rounds: decoding, the window part
    (tables, window sums, chain) and the z-ladders with the comparison;
+5. ``subgroup``: at (B, 10), 1 and 2 rounds: the loads, the window part
+   and the z-ladders with the comparison;
 
 each kernel's output checked against its plain version. Last the card's
 ``nvidia-smi`` name and power limit. Needs a CUDA device."""
@@ -60,6 +69,48 @@ def primitives(dev, steps: int = 64) -> None:
             if not torch.equal(results[a], results[b]):
                 raise SystemExit(f"curve_probe: {VARIANTS[b]} differs from {VARIANTS[a]}")
         print(json.dumps({"probe": "primitive", "warps_per_sm": warps, "steps": steps, "cycles_per_step": cycles}))
+
+
+LANE_SPLITS = {"fp": (1, 2, 4), "fr": (1, 2, 4, 8)}  # 1: one thread, f_mul
+
+
+def lane_products(dev, steps: int = 64) -> None:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lib = _build.library()
+    for field, (spec, nw) in enumerate(((FP_SPEC, 12), (FR_SPEC, 8))):
+        for warps in (1, 8):
+            threads = sms * 32 * warps
+            rng = np.random.default_rng(warps + 10 * field)
+            cycles = {}
+            for lanes in LANE_SPLITS[spec.name]:
+                n = threads // lanes
+                vals = [int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N for _ in range(2 * n)]
+                words = [_build.words(v * (1 << (32 * nw)) % spec.N, nw) for v in vals]
+                x = torch.tensor(np.array(words, dtype=np.uint32).view(np.int32), device=dev).reshape(n, 2 * nw)
+                y = torch.empty((n, nw), dtype=torch.int32, device=dev)
+                cyc = torch.empty((threads // 32,), dtype=torch.int64, device=dev)
+                _build.check(lib.ph2_lanes_step_probe(_build.ptr(x), _build.ptr(y), _build.ptr(cyc), sms, warps, steps,
+                                                      field, lanes, _build.stream_ptr()), "ph2_lanes_step_probe")
+                torch.cuda.synchronize()
+                if lanes > 1 and not torch.equal(y, _one_thread(lib, x, steps, field, nw, dev)):
+                    raise SystemExit(f"curve_probe: {spec.name} product on {lanes} lanes differs from f_mul")
+                cycles[lanes] = float(cyc.double().median()) / steps
+            print(json.dumps({"probe": "lanes", "field": spec.name, "warps_per_sm": warps, "steps": steps,
+                              "cycles_per_product_by_lanes": cycles}))
+
+
+def _one_thread(lib, x, steps, field, nw, dev):
+    """f_mul's outputs on x's elements (one thread an element)."""
+    n = x.shape[0]
+    threads = -(-n // 32) * 32
+    pad = torch.zeros((threads - n, 2 * nw), dtype=torch.int32, device=dev)
+    xp = torch.cat([x, pad]).contiguous()
+    y = torch.empty((threads, nw), dtype=torch.int32, device=dev)
+    cyc = torch.empty((threads // 32,), dtype=torch.int64, device=dev)
+    _build.check(lib.ph2_lanes_step_probe(_build.ptr(xp), _build.ptr(y), _build.ptr(cyc), threads // 32, 1, steps,
+                                          field, 1, _build.stream_ptr()), "ph2_lanes_step_probe")
+    torch.cuda.synchronize()
+    return y[:n]
 
 
 def _median_row(phases) -> list[float]:
@@ -109,6 +160,24 @@ def decompress_phases(dev, B: int, rng) -> None:
                           "cycles_per_ladder_stage": ladders / (2 * (2 * 68 + 1) + 2)}))
 
 
+def subgroup_phases(dev, B: int, rng) -> None:
+    pool = [rc.g1_mul(rc.G1_GEN, int(k)) for k in rng.integers(1, 2**62, size=16)]
+    tab = torch.from_numpy(np.stack([tc.host_point_to_mont(p) for p in pool])).to(dev)
+    pts = tab[torch.from_numpy(rng.integers(0, len(pool), size=(B, 10))).to(dev)].contiguous()
+    for rounds in (1, 2):
+        w = tc.subgroup_weights(10, rounds, torch.Generator().manual_seed(rounds))
+        ph = torch.zeros((B, 4), dtype=torch.int64, device=dev)
+        got = cuda_curve.aggregate_subgroup_check(pts, w, phases=ph)
+        if not torch.equal(got, tc.aggregate_subgroup_check_windowed(pts, w)) or not bool(got.all()):
+            raise SystemExit(f"curve_probe: subgroup at {rounds} rounds differs from its plain version")
+        load, window, ladders = _median_row(ph)
+        print(json.dumps({"probe": "subgroup", "rows": B, "K": 10, "rounds": rounds,
+                          "lanes": cuda_curve.SUBGROUP_LANES,
+                          "cycles": {"load": load, "tables_window_sums_chain": window,
+                                     "ladders_and_compare": ladders},
+                          "cycles_per_ladder_stage": ladders / (2 * (2 * 68 + 1) + 2)}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024)
@@ -119,8 +188,10 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     primitives(dev)
+    lane_products(dev)
     msm_phases(dev, args.batch, rng)
     decompress_phases(dev, args.batch, rng)
+    subgroup_phases(dev, args.batch, rng)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])

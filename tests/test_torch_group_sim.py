@@ -1,17 +1,22 @@
 """The lane-group kernels (csrc/msm.cu, the fused variant of
-csrc/decompress.cu, over csrc/group.cuh) run on the CPU: their sources
-compiled by g++ through a small CUDA shim and run with one thread per lane,
-__syncwarp a barrier of the lane's group, a block of two rows at a time;
-the PTX carry-chain adds and subtractions replaced by their plain
-counterparts (field.cuh's f_add and f_sub, which give the same values).
-The outputs against the plain versions of the kernels' decompositions:
-the MSM limb for limb with ops/curve.msm_windowed at both window widths;
-points and valid flags bit for bit with ops/curve.decompress(..., y_hint=),
-sub_ok with ops/curve.aggregate_subgroup_check_windowed on rows whose
-points all decode and valid & sub_ok everywhere; at several lane-group
-widths, ragged point counts and 1 to 4 rounds. This checks the kernels'
-scheduling (units over lanes, batches, barriers, shared-memory layout),
-not the card's compiler; needs g++ with C++20."""
+csrc/decompress.cu and csrc/subgroup.cu over csrc/group.cuh; csrc/pow.cu
+over csrc/lanes.cuh) run on the CPU: their sources compiled by g++ through
+a small CUDA shim and run with one thread per lane, __syncwarp a barrier of
+the lane's group, a shuffle or a ballot an exchange through the group's
+slots between two such barriers, a block of two rows at a time; group.cuh's
+PTX carry chains replaced by their plain counterparts (field.cuh's f_add
+and f_sub, which give the same values). The outputs
+against the plain versions of the kernels' decompositions: the MSM limb
+for limb with ops/curve.msm_windowed at both window widths; points and
+valid flags bit for bit with ops/curve.decompress(..., y_hint=), sub_ok
+with ops/curve.aggregate_subgroup_check_windowed on rows whose points all
+decode and valid & sub_ok everywhere; the subgroup kernel's verdicts with
+aggregate_subgroup_check_windowed and the rows' construction; the pow
+kernel limb for limb with ops/cuda_field.pow_plain for both fields at
+every lane-group width; at several lane-group widths, ragged point counts
+and 1 to 4 rounds. This checks the kernels' scheduling and arithmetic
+(units over lanes, batches, barriers, shuffles and carry lookaheads,
+shared-memory layout), not the card's compiler; needs g++ with C++20."""
 
 import os
 import re
@@ -24,9 +29,9 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from plutus_halo2_tpu_torch.ops import _build, cuda_curve  # noqa: E402
+from plutus_halo2_tpu_torch.ops import _build, cuda_curve, cuda_field  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
-from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC  # noqa: E402
+from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, window_digits  # noqa: E402
 from plutus_halo2_tpu_torch.refimpl import curve as rc  # noqa: E402
 
 SHIM = r"""
@@ -48,7 +53,10 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 blockDim;
 void __syncwarp(unsigned);
-inline void __syncthreads() {}  // curve.cuh's one-thread-per-point test, not run here
+unsigned __shfl_sync(unsigned, unsigned, int, int);
+unsigned __shfl_down_sync(unsigned, unsigned, unsigned, int);
+unsigned __shfl_up_sync(unsigned, unsigned, unsigned, int);
+unsigned __ballot_sync(unsigned, int);
 template <class T> T __ldg(const T* p) { return *p; }
 inline long long clock64() { return 0; }
 typedef int cudaError_t;
@@ -74,10 +82,38 @@ HARNESS = r"""
 thread_local dim3 threadIdx, blockIdx;
 dim3 blockDim;
 static thread_local std::barrier<>* group_barrier;
+static thread_local uint32_t* group_slots;  // one word a lane of the group
+static int group_width;
 void __syncwarp(unsigned) { group_barrier->arrive_and_wait(); }
+// every lane of the group posts v, then reads lane src's
+static unsigned exchange(unsigned v, int src) {
+  group_slots[threadIdx.x % group_width] = v;
+  __syncwarp(0);
+  const unsigned r = group_slots[src];
+  __syncwarp(0);
+  return r;
+}
+unsigned __shfl_sync(unsigned, unsigned v, int src, int width) { return exchange(v, src % width); }
+unsigned __shfl_down_sync(unsigned, unsigned v, unsigned d, int width) {
+  const int l = threadIdx.x % width;
+  return exchange(v, l + (int)d < width ? l + (int)d : l);
+}
+unsigned __shfl_up_sync(unsigned, unsigned v, unsigned d, int width) {
+  const int l = threadIdx.x % width;
+  return exchange(v, l >= (int)d ? l - (int)d : l);
+}
+// bit (warp lane) of each lane of the group whose predicate holds
+unsigned __ballot_sync(unsigned, int p) {
+  const unsigned base = (threadIdx.x & 31) & ~(unsigned)(group_width - 1);
+  unsigned bits = 0;
+  for (int k = 0; k < group_width; k++) bits |= (exchange(p != 0, k) ? 1u : 0u) << (base + k);
+  return bits;
+}
 alignas(16) uint32_t smem[1 << 16];
 #include "msm.cu"
 #include "decompress.cu"
+#include "subgroup.cu"
+#include "pow.cu"
 
 template <class T> std::vector<T> readf(const char* path, size_t n) {
   std::vector<T> v(n);
@@ -95,8 +131,10 @@ template <class T> void writef(const char* path, const std::vector<T>& v) {
 // every block of `rows` rows in turn, one thread a lane, a barrier a group
 template <class F> void run_blocks(int B, int lanes, int rows, F body) {
   blockDim = dim3(rows * lanes);
+  group_width = lanes;
   for (int b = 0; b * rows < B; b++) {
     std::vector<std::unique_ptr<std::barrier<>>> bars;
+    std::vector<uint32_t> slots((size_t)rows * lanes);
     for (int r = 0; r < rows; r++) bars.emplace_back(new std::barrier<>(lanes));
     std::vector<std::thread> ts;
     for (int t = 0; t < rows * lanes; t++)
@@ -104,6 +142,7 @@ template <class F> void run_blocks(int B, int lanes, int rows, F body) {
         threadIdx = dim3(t);
         blockIdx = dim3(b);
         group_barrier = bars[t / lanes].get();
+        group_slots = slots.data() + (size_t)(t / lanes) * lanes;
         body();
       });
     for (auto& t : ts) t.join();
@@ -119,6 +158,25 @@ int main(int argc, char** argv) {
     run_blocks(B, lanes, rows, [&] {
       if (X == 4) msm_kernel<4>(pts.data(), sc.data(), out.data(), nullptr, B, K, lanes);
       else msm_kernel<5>(pts.data(), sc.data(), out.data(), nullptr, B, K, lanes);
+    });
+    writef("out.bin", out);
+  } else if (argv[1][0] == 's') {  // X: the rounds
+    auto pts = readf<int64_t>("pts.bin", (size_t)B * K * 75);
+    auto w = readf<int>("w.bin", (size_t)X * K);
+    std::vector<uint8_t> ok(B);
+    run_blocks(B, lanes, rows, [&] { subgroup_kernel(pts.data(), w.data(), ok.data(), nullptr, B, K, X, lanes); });
+    writef("ok.bin", ok);
+  } else if (argv[1][0] == 'p') {  // B elements, K: 0 Fp, 1 Fr; X: the digits
+    const int L = K == 0 ? FpT::L16 : FrT::L16;
+    auto x = readf<int64_t>("x.bin", (size_t)B * L);
+    auto dig = readf<int>("digits.bin", (size_t)X);
+    std::vector<int64_t> out((size_t)B * L, -1);
+    run_blocks(B, lanes, rows, [&] {
+      if (K == 0 && lanes == 2) pow_kernel<FpT, 2>(x.data(), out.data(), B, dig.data(), X);
+      if (K == 0 && lanes == 4) pow_kernel<FpT, 4>(x.data(), out.data(), B, dig.data(), X);
+      if (K == 1 && lanes == 2) pow_kernel<FrT, 2>(x.data(), out.data(), B, dig.data(), X);
+      if (K == 1 && lanes == 4) pow_kernel<FrT, 4>(x.data(), out.data(), B, dig.data(), X);
+      if (K == 1 && lanes == 8) pow_kernel<FrT, 8>(x.data(), out.data(), B, dig.data(), X);
     });
     writef("out.bin", out);
   } else {  // X: the rounds
@@ -233,3 +291,61 @@ def test_decompress_kernel_on_cpu_threads(sim, B, K, rounds, lanes):
     assert np.array_equal(ok[rows_ok], wo.numpy()[rows_ok])
     assert np.array_equal(ok & rows_ok, wo.numpy() & rows_ok)
     assert (~ok[rows_ok]).any()  # a row with the point outside G1 decodes and fails
+
+
+def _evil_point():
+    """A valid E(Fp) point outside G1."""
+    P = FP_SPEC.N
+    x = 100
+    while True:
+        y = pow((x**3 + 4) % P, (P + 1) >> 2, P)
+        if y * y % P == (x**3 + 4) % P and not rc.g1_in_subgroup((x, y)):
+            return (x, y)
+        x += 1
+
+
+@pytest.mark.parametrize("B,K,rounds,lanes", [(4, 1, 1, 4), (5, 3, 2, 8), (4, 10, 1, 16), (3, 33, 4, 32),
+                                              (4, 10, 3, 32), (3, 33, 2, 4), (5, 1, 4, 16), (4, 3, 3, 8)])
+def test_subgroup_kernel_on_cpu_threads(sim, B, K, rounds, lanes):
+    """Rows of honest G1 points with identities among them, and rows with
+    the point outside G1, each point as another projective representative
+    (sX : sY : sZ): the verdicts against the plain version of the kernel's
+    decomposition and the rows' construction."""
+    rng = np.random.default_rng(10 * K + rounds)
+    good = [rc.g1_mul(rc.G1_GEN, int(k)) for k in rng.integers(1, 2**62, size=3)]
+    kinds, host = [], []
+    for b in range(B):
+        row = [good[rng.integers(0, 3)] if (b + k) % 3 else None for k in range(K)]
+        if b % 2 == 1:
+            row[(b // 2) % K] = _evil_point()
+        kinds.append(b % 2 == 0)
+        host.append(row)
+    pts = torch.from_numpy(np.stack([np.stack([tc.host_point_to_mont(p) for p in row]) for row in host]))
+    pts = tc.fp.mul(pts, torch.from_numpy(FP_SPEC.to_mont(0xC0FFEE)))
+    w = tc.subgroup_weights(K, rounds, torch.Generator().manual_seed(K + rounds)).to(torch.int32)
+    pts.numpy().astype(np.int64).tofile(sim / "pts.bin")
+    w.numpy().tofile(sim / "w.bin")
+    _run(sim, "s", B, K, rounds, lanes)
+    ok = np.fromfile(sim / "ok.bin", np.uint8).astype(bool)
+    want = tc.aggregate_subgroup_check_windowed(pts, w.to(torch.int64)).numpy()
+    assert np.array_equal(ok, want)
+    assert ok.tolist() == kinds
+
+
+@pytest.mark.parametrize("field,lanes", [("fp", 2), ("fp", 4), ("fr", 2), ("fr", 4), ("fr", 8)])
+def test_pow_kernel_on_cpu_threads(sim, field, lanes):
+    """The verifier's two exponents (Fp (p + 1) / 4, Fr q - 2) on a ragged
+    count of elements: 0, 1 and N - 1 (canonical, in the Montgomery domain)
+    and the elements whose limbs are 1 and N - 1, then random values; limb
+    for limb against the plain version."""
+    spec, e = (FP_SPEC, (FP_SPEC.N + 1) >> 2) if field == "fp" else (FR_SPEC, FR_SPEC.N - 2)
+    rng = np.random.default_rng(lanes)
+    special = [spec.to_mont(v) for v in (0, 1, spec.N - 1)] + [spec.encode(v) for v in (1, spec.N - 1)]
+    rand = [spec.to_mont(int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N) for _ in range(2)]
+    x = np.stack(special + rand).astype(np.int64)
+    digits = np.array(window_digits(e), np.int32)
+    x.tofile(sim / "x.bin")
+    digits.tofile(sim / "digits.bin")
+    _run(sim, "p", len(x), 0 if field == "fp" else 1, len(digits), lanes)
+    got = np.fromfile(sim / "out.bin", np.int64).reshape(x.shape)
+    assert np.array_equal(got, cuda_field.pow_plain(torch.from_numpy(x), spec, e).numpy())

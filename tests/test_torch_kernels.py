@@ -3,7 +3,9 @@ B, any K): each kernel's wrapper on CUDA tensors against its plain PyTorch
 version on the same inputs, exactly (the MSM, at both window widths, limb
 for limb against the plain version of its decomposition and in affine
 coordinates against the per-point MSM; the aggregate subgroup verdicts on
-rows whose points all decode; every lane-group width; the tensor-core probe kernels bit for bit), and the verifier's
+rows whose points all decode, against the plain version of the kernels'
+decomposition and the JAX package's algorithm; the pow kernel on 0, 1 and
+N - 1; every lane-group width; the tensor-core probe kernels bit for bit), and the verifier's
 modes and verify_rlc on the card against the CPU.
 
 These need a CUDA device and nvcc (sm_90a) and skip without them; run them
@@ -52,25 +54,55 @@ def test_mont_mul_kernel(dev, spec):
     assert torch.equal(kern(a, b), cuda_field.mont_mul_plain(a, b, spec))
 
 
-@pytest.mark.parametrize("which", ["fr_inverse", "fp_sqrt"])
-def test_pow_kernel(dev, which):
+def _pow_case(which, shape, seed, dev):
+    """(x, exponent, kernel wrapper, spec): canonical random values with 0,
+    1 and N - 1 in the Montgomery domain and the values whose limbs are 1
+    and N - 1 among them."""
     if which == "fr_inverse":
-        x, e, kern, spec = _canon(FR_SPEC, (37, 1), 3, dev), FR_SPEC.N - 2, cuda_field.fr_pow, FR_SPEC
+        spec, e, kern = FR_SPEC, FR_SPEC.N - 2, cuda_field.fr_pow
     else:
-        x, e, kern, spec = _canon(FP_SPEC, (13, 3), 4, dev), (FP_SPEC.N + 1) >> 2, cuda_field.fp_pow, FP_SPEC
+        spec, e, kern = FP_SPEC, (FP_SPEC.N + 1) >> 2, cuda_field.fp_pow
+    x = _canon(spec, shape, seed, dev).reshape(-1, spec.L)
+    special = [spec.to_mont(1), spec.to_mont(spec.N - 1), spec.encode(1), spec.encode(spec.N - 1)]
+    x[1 : 1 + len(special)] = torch.from_numpy(np.stack(special)).to(dev)
+    return x.reshape(*shape, spec.L), e, kern, spec
+
+
+@pytest.mark.parametrize("which,shape", [("fr_inverse", (37, 1)), ("fr_inverse", (1024, 1)),
+                                         ("fp_sqrt", (13, 3)), ("fp_sqrt", (1024, 10))])
+def test_pow_kernel(dev, which, shape):
+    """The verifier's two exponents at ragged and at the main path's shapes,
+    limb for limb against the plain version."""
+    x, e, kern, spec = _pow_case(which, shape, 3 + shape[0], dev)
     assert torch.equal(kern(x, e), cuda_field.pow_plain(x, spec, e))
+
+
+@pytest.mark.parametrize("which", ["fr_inverse", "fp_sqrt"])
+def test_pow_kernel_lane_groups(dev, which, monkeypatch):
+    """Every lane-group width and elements-per-block setting gives the same
+    limbs (ragged last block)."""
+    x, e, kern, _spec = _pow_case(which, (37, 3), 11, dev)
+    want = kern(x, e)
+    attr, widths = ("POW_FR_LANES", (2, 4, 8)) if which == "fr_inverse" else ("POW_FP_LANES", (2, 4))
+    for lanes in widths:
+        for rows in (1, 2, 5, 256 // lanes):
+            monkeypatch.setattr(cuda_field, attr, lanes)
+            monkeypatch.setattr(cuda_field, "POW_ROWS", rows)
+            assert torch.equal(kern(x, e), want), (lanes, rows)
 
 
 @pytest.mark.parametrize("tpb", [1, 3, 128])
 def test_block_size_keeps_results(dev, tpb, monkeypatch):
-    """Any block size gives the default's output (ragged last block)."""
+    """Any block size gives the default's output (ragged last block) in the
+    one-thread-per-item kernels: the unfused decompress kernel."""
     from plutus_halo2_tpu_torch.ops import _build
 
-    x = _canon(FP_SPEC, (37, 2), 10, dev)
-    e = (FP_SPEC.N + 1) >> 2
-    want = cuda_field.fp_pow(x, e)
+    raw, hints, _kinds = _grid(37, 3, 10, ["go", "gox"])
+    raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
+    want = cuda_curve.decompress_hinted(raw_t, hints_t)
     monkeypatch.setattr(_build, "BLOCK_THREADS", tpb)
-    assert torch.equal(cuda_field.fp_pow(x, e), want)
+    got = cuda_curve.decompress_hinted(raw_t, hints_t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_transcript_kernel(dev):
@@ -349,19 +381,41 @@ def test_decompress_kernel_lane_groups(dev, lanes, rows, monkeypatch):
     assert all(torch.equal(g, x) for g, x in zip(got, want))
 
 
-@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33)])
-@pytest.mark.parametrize("rounds", [1, 2])
-def test_subgroup_kernel(dev, B, K, rounds):
-    raw, hints, kinds = _grid(B, K, 7 * B + K, ["go", "goe", "o", "e"])
+def _subgroup_rows(B, K, seed, dev):
+    """(B, K) decoded points of honest rows, rows of identities and rows
+    with a point outside G1, each point as another projective
+    representative (sX : sY : sZ); and each row's membership."""
+    raw, hints, kinds = _grid(B, K, seed, ["go", "goe", "o", "e"])
     pts, valid = cuda_curve.decompress_hinted_plain(torch.from_numpy(raw), torch.from_numpy(hints))
     assert bool(valid.all())
-    # another projective representative of every point: (sX : sY : sZ)
     s = torch.from_numpy(FP_SPEC.to_mont(0xC0FFEE))
-    pts = tc.fp.mul(pts, s).to(dev).contiguous()
+    return tc.fp.mul(pts, s).to(dev).contiguous(), ["e" not in row for row in kinds]
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33), (1024, 10), (17, 128)])
+@pytest.mark.parametrize("rounds", [1, 2, 3, 4])
+def test_subgroup_kernel(dev, B, K, rounds):
+    """Against the plain version of the kernel's decomposition and the JAX
+    package's algorithm (the CPU route), and the rows' construction."""
+    pts, member = _subgroup_rows(B, K, 7 * B + K, dev)
     w = torch.randint(1, 1 << 16, (rounds, K), generator=torch.Generator().manual_seed(B))
     got = cuda_curve.aggregate_subgroup_check(pts, w)
+    assert torch.equal(got, tc.aggregate_subgroup_check_windowed(pts, w))
     assert torch.equal(got, cuda_curve.aggregate_subgroup_check_plain(pts, w))
-    assert got.cpu().tolist() == ["e" not in row for row in kinds]
+    assert got.cpu().tolist() == member
+
+
+@pytest.mark.parametrize("lanes,rows", [(4, 0), (8, 3), (16, 0), (32, 1), (32, 5)])
+def test_subgroup_kernel_lane_groups(dev, lanes, rows, monkeypatch):
+    """Every lane-group width and rows-per-block setting gives the same
+    verdicts."""
+    pts, member = _subgroup_rows(37, 10, 3, dev)
+    w = torch.randint(1, 1 << 16, (2, 10), generator=torch.Generator().manual_seed(2))
+    want = cuda_curve.aggregate_subgroup_check(pts, w)
+    assert want.cpu().tolist() == member
+    monkeypatch.setattr(cuda_curve, "SUBGROUP_LANES", lanes)
+    monkeypatch.setattr(cuda_curve, "SUBGROUP_ROWS", rows)
+    assert torch.equal(cuda_curve.aggregate_subgroup_check(pts, w), want)
 
 
 def test_kernel_waits_for_queued_torch_work(dev):
