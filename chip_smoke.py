@@ -14,11 +14,15 @@ hand-written CUDA kernels, in phases:
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
   2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``,
      and the build log's registers, stack frame and spill bytes of the
-     lane-group kernels (MSM, fused decompress, subgroup, pow) are printed;
+     lane-group kernels (MSM, fused decompress, subgroup, pow, transcript)
+     and of the bf16 chain are printed;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
      PyTorch product on 2^16 random canonical pairs (exactly equal), the Fp
      kernel timed beside its bound;
-  4. kernels: transcript, Fr pow, Fp pow, MSM (at 5-bit windows, at
+  4. kernels: transcript (on the batch's buffers at 4 and at 1 lane a
+     compression, at B = 1 and 17; against hashlib with 200 squeezes in
+     rounds and on 40 KB and 300 KB transcripts; one compression's latency
+     and the chain's floor), Fr pow, Fp pow, MSM (at 5-bit windows, at
      the stage probe's 4, and at the RLC aggregation's (B / 4, 8)), pairing,
      hinted decompression (fused with the subgroup test at 1 round, and
      unfused) and the aggregate subgroup test (1 and 2 rounds) against their
@@ -33,7 +37,8 @@ hand-written CUDA kernels, in phases:
      the per-point test); the
      three tensor-core probe kernels (int8 product,
      int8 and bf16 200-step chains) on the JAX probe's inputs at B = 1024
-     and at B = 1, 17, 128, bit for bit, the two chains equal. Each kernel
+     and at B = 1, 17, 128, bit for bit, the two chains equal; the bf16
+     chain's step latency on one warp and its 200-step floor. Each kernel
      is timed by its device time (``ms``: the summed durations of its
      kernel over a ``torch.profiler`` window of calls,
      ``utils.profiling.device_ms``) and by what one call costs its caller
@@ -272,7 +277,76 @@ def _nonsubgroup_point(P: int, in_g1) -> tuple[int, int]:
 
 def _blake_ops(lengths) -> int:
     comps = max((l - 1) // 128 for l in lengths) + 2 * len(lengths)
-    return comps * 12 * 8 * 32  # 96 G steps of ~16 64-bit ops, 2 int32 ops each
+    # 96 G steps of 22 int32 ops: four 64-bit adds and four xors at 2 each,
+    # the rotations by 24, 16 and 63 at 2 funnel shifts each (by 32: a swap)
+    return comps * 12 * 8 * 22
+
+
+def _hashlib_digests(buf, lengths):
+    """(h1, h2) as the transcript kernel's (B, S, 8) LE64 (lo, hi) words, by
+    the standard library's Blake2b-256."""
+    import hashlib
+
+    import numpy as np
+
+    h1 = np.empty((buf.shape[0], len(lengths), 8), np.int64)
+    h2 = np.empty_like(h1)
+    for r, row in enumerate(buf):
+        for i, n in enumerate(lengths):
+            d = hashlib.blake2b(row[:n].tobytes(), digest_size=32).digest()
+            h1[r, i] = np.frombuffer(d, "<u4")
+            h2[r, i] = np.frombuffer(hashlib.blake2b(d, digest_size=32).digest(), "<u4")
+    return h1, h2
+
+
+def transcript_checks(buf, lengths, p1, p2, rng):
+    """The transcript kernel beside the default: at 1 lane a compression on
+    the batch's buffers, at ragged B = 1 and 17, each against the plain
+    Blake2b; with 200 squeezes (more than a row's groups: two rounds) at
+    B = 1 and 17, and on long transcripts (40 KB at B = 1024: fewer rows a
+    block; 300 KB at B = 3: no row's bytes fit in shared memory, every block
+    read from global memory), against hashlib; then one compression's
+    latency: the device time at the batch's lengths less that at the same
+    lengths cut to one block (max_fb chain compressions apart, the same
+    rows, groups and final phases), over max_fb; and the floor of a row's
+    max_fb + 2 dependent compressions."""
+    import numpy as np
+    import torch
+
+    from plutus_halo2_tpu_torch.ops import cuda_blake
+    from plutus_halo2_tpu_torch.utils.profiling import device_ms
+
+    def same(b, want1, want2):
+        g1, g2 = cuda_blake.transcript_hashes(b, lengths)
+        return torch.equal(g1, want1) and torch.equal(g2, want2)
+
+    default = cuda_blake.TRANSCRIPT_LANES
+    try:
+        cuda_blake.TRANSCRIPT_LANES = 1
+        if not same(buf, p1, p2):
+            _fail("transcript kernel at 1 lane a compression differs from the plain Blake2b")
+    finally:
+        cuda_blake.TRANSCRIPT_LANES = default
+    for n in (1, 17):
+        b = torch.from_numpy(rng.integers(0, 256, size=(n, buf.shape[1]), dtype=np.uint8)).to(buf.device)
+        if not same(b, *cuda_blake.transcript_hashes_plain(b, lengths)):
+            _fail(f"transcript kernel differs from the plain Blake2b at B = {n}")
+    for n, T, ls in ((1, 1500, 200), (17, 1500, 200), (1024, 40_000, 0), (3, 300_000, 0)):
+        b = rng.integers(0, 256, size=(n, T), dtype=np.uint8)
+        ls = tuple(int(x) for x in rng.integers(1, T + 1, size=ls)) if ls else (1, 129, T // 2, T - 1, T)
+        g1, g2 = cuda_blake.transcript_hashes(torch.from_numpy(b).to(buf.device), ls)
+        w1, w2 = _hashlib_digests(b, ls)
+        if not (np.array_equal(g1.cpu().numpy(), w1) and np.array_equal(g2.cpu().numpy(), w2)):
+            _fail(f"transcript kernel differs from hashlib's Blake2b at B = {n}, {T} bytes, {len(ls)} squeezes")
+    print(f"[kernel] transcript exact at 1 and {default} lanes a compression, at B = 1, 17; against hashlib "
+          f"at 200 squeezes (in rounds), B = 1, 17, and at 40 KB (B = 1024) and 300 KB (B = 3, unstaged)")
+    max_fb = max((n - 1) // 128 for n in lengths)
+    t = [device_ms(lambda: cuda_blake.transcript_hashes(buf, ls), ["transcript_kernel"], calls=20)
+         for ls in (lengths, [min(n, 128) for n in lengths])]
+    comp_ms = (t[0] - t[1]) / max_fb
+    print(f"[kernel] transcript: one compression {comp_ms * 1e3:.4f} us at {buf.shape[0]} rows "
+          f"({cuda_blake.TRANSCRIPT_LANES} lanes; {t[0]:.4f} ms, {t[1]:.4f} with the lengths cut to 128); "
+          f"chain floor {max_fb + 2} x = {(max_fb + 2) * comp_ms:.4f} ms")
 
 
 def _health() -> tuple[str, str]:
@@ -337,7 +411,8 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if line.startswith("==") or any(k in line for k in ("entry function", "registers", "stack frame")):
             print(f"[build] {line.strip()}")
-    lane_groups = {r["function"]: r for name in ("msm_kernel", "subgroup_kernel", "pow_kernel")
+    lane_groups = {r["function"]: r for name in ("msm_kernel", "subgroup_kernel", "pow_kernel", "transcript_kernel",
+                                                 "bf16_chain_kernel")
                    for r in _build.kernel_resources(name)}  # subgroup_kernel names the fused decompress too
     for r in lane_groups.values():
         print(f"[build] {r['function']}: {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
@@ -422,6 +497,7 @@ def main() -> int:
            max(limb_err(h1, p1), limb_err(h2, p2)),
            _times(lambda: cuda_blake.transcript_hashes(buf, lengths), "transcript_kernel", 20), plain_ms,
            _bound_ms(B * _blake_ops(lengths), buf.numel() + 8 * (h1.numel() + h2.numel())))
+    transcript_checks(buf, lengths, p1, p2, rng)
 
     # pow: the Fr inversion root (B, 1) and the Fp sqrt ladder (B, 10)
     n_pts = len(verifier.layout.point_offsets)
@@ -683,13 +759,23 @@ def main() -> int:
            _bound_ms(product_ops, in_bytes + 4 * dot.numel(), TC_INT8_OPS_PER_S),
            # every device kernel the library call launches
            _times(lambda: torch._int_mm(mat, vec), None, 50)[0])
-    for name, kern, line, peak in (("int8_chain", cuda_mma.int8_chain, 101, TC_INT8_OPS_PER_S),
-                                   ("bf16_chain", cuda_mma.bf16_chain, 122, TC_BF16_FLOPS)):
-        times = _times(lambda: kern(mat, vec), "mma_probe_kernel", 20)
-        record(name, "plutus_halo2_tpu_torch/csrc/mma_probe.cu", f"tools/mxu_probe.py:{line}", 0, times,
+    for name, kern, kernel, source, line, peak in (
+        ("int8_chain", cuda_mma.int8_chain, "mma_probe_kernel", "mma_probe.cu", 101, TC_INT8_OPS_PER_S),
+        ("bf16_chain", cuda_mma.bf16_chain, "bf16_chain_kernel", "mma_chain.cu", 122, TC_BF16_FLOPS),
+    ):
+        times = _times(lambda: kern(mat, vec), kernel, 20)
+        record(name, f"plutus_halo2_tpu_torch/csrc/{source}", f"tools/mxu_probe.py:{line}", 0, times,
                _call_ms(lambda: cuda_mma.chain_plain(mat, vec), 3),
                _bound_ms(steps * step_ops, in_bytes + 4 * c8.numel(), peak))
-        print(f"[kernel] {name}: {times[0] * 1e3 / steps:.3f} us per product ({steps} dependent products)")
+        print(f"[kernel] {name}: {times[0] * 1e3 / steps:.4f} us per product ({steps} dependent products)")
+    # one warp alone (16 columns): a step's latency, without the card's
+    # other warps; the 200 dependent steps can take no less than 200 of them
+    mat16, vec16 = probe_inputs(16)
+    one = [_times(lambda: cuda_mma.bf16_chain(mat16, vec16, n), "bf16_chain_kernel", 20)[0] for n in (0, steps)]
+    step_us = (one[1] - one[0]) * 1e3 / steps
+    print(f"[kernel] bf16_chain step latency on one warp: {step_us:.4f} us ({one[1]:.4f} ms at {steps} steps, "
+          f"{one[0]:.4f} at 0); dependent-step floor {steps * step_us / 1e3:.4f} ms at B = {B} "
+          f"(device {results['bf16_chain']['ms']:.4f}); {cuda_mma.CHAIN_WARPS} warps a block")
 
     # ---- 5. the paths ------------------------------------------------------
     counters = {

@@ -4,42 +4,36 @@
 
     python3 -m plutus_halo2_tpu_torch.block_sweep --only msm,decompress_fused
 
-Times the transcript and unfused hinted decompression kernels at the
-verifier's shapes (B rows; decompression at B x 10 points) by device time
-(``utils.profiling.device_ms``), at the default block size
-(``ops._build.BLOCK_THREADS``) and at fixed sizes from 1 to 128 threads,
-checks that every size gives the default's output, and prints one JSON line
-per kernel with the device ms per size. The lane-group kernels are swept
-over lanes per row and rows per block (0: the fewest that fill the SMs
-once), each setting's output checked against the default's: the pairing
+Times the unfused hinted decompression kernel at the verifier's shape
+(B x 10 points) by device time (``utils.profiling.device_ms``), at the
+default block size (``ops._build.BLOCK_THREADS``) and at fixed sizes from 1
+to 128 threads, checks that every size gives the default's output, and
+prints one JSON line with the device ms per size. The lane-group kernels
+are swept over lanes per row and rows per block (0: the fewest that fill
+the SMs once), each setting's output checked against the default's: the
+transcript kernel (1, 4 lanes a compression x 0, 1, 2, 4, 8, 16 rows, a
+group a squeeze) at (B, simple_mul's 9 squeeze lengths); the bf16 chain (1, 2, 4, 8 warps a block) at 200 steps on B columns; the
+pairing
 (16, 32 lanes x 1, 2, 4, 8 rows) at B and at the RLC group check's B / 8
 rows; the MSM (4, 8, 16, 32 lanes x 0, 1, 2, 4, 8 rows) at (B, 16) and at
 the RLC aggregation's (B / 4, 8); the fused decompress and the aggregate
 subgroup kernel (the same grid) at (B, 10), one round; the pow kernel
 (lanes per element: Fr 2, 4, 8, Fp 2, 4; x 4, 8, 16, 32 elements per
 block) at the Fr inversion's (B, 1) and the Fp square-root ladder's
-(B, 10). ``--only`` picks some of transcript, pow_fr, pow_fp, decompress,
-subgroup, pairing, msm, decompress_fused, verify. Then it times ``TorchVerifier.verify()`` in the default mode
-(y-hints, the aggregate subgroup test) on a B-proof batch of the committed
-simple_mul proof at the default block size and at one thread per block,
-alternated (1, default, default, 1, ...) in one process so that the
-host's drift falls on both, and prints the median batch ms and stage ms
-of each; last, the card's ``nvidia-smi`` name and power limit. Needs a
-CUDA device."""
+(B, 10). ``--only`` picks some of transcript, bf16_chain, pow_fr, pow_fp,
+decompress, subgroup, pairing, msm, decompress_fused. Last, it prints the
+card's ``nvidia-smi`` name and power limit. Needs a CUDA device."""
 
 from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from .ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_pairing
+from .ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_pairing
 from .ops import curve as tc
 from .ops import pairing as tp
 from .ops.limb import FP_SPEC, FR_SPEC
@@ -53,7 +47,11 @@ GROUP_LANES = (4, 8, 16, 32)  # the MSM's, fused decompress and subgroup kernels
 GROUP_ROWS = (0, 1, 2, 4, 8)  # and rows per block (0: from B)
 POW_LANES = {"pow_fr": (2, 4, 8), "pow_fp": (2, 4)}  # lanes per element of the pow kernel
 POW_ROWS = (4, 8, 16, 32)  # and elements per block
-PARTS = ("transcript", "pow_fr", "pow_fp", "decompress", "subgroup", "pairing", "msm", "decompress_fused", "verify")
+TRANSCRIPT_LANES = (1, 4)  # lanes a compression of the transcript kernel
+TRANSCRIPT_ROWS = (0, 1, 2, 4, 8, 16)  # and rows per block (0: from B)
+CHAIN_WARPS = (1, 2, 4, 8)  # warps a block of the bf16 chain
+PARTS = ("transcript", "bf16_chain", "pow_fr", "pow_fp", "decompress", "subgroup", "pairing", "msm",
+         "decompress_fused")
 # the squeeze lengths of simple_mul's transcript (models/layout.py)
 SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)
 
@@ -68,46 +66,6 @@ def _same(a, b) -> bool:
     if isinstance(a, tuple):
         return all(torch.equal(x, y) for x, y in zip(a, b))
     return torch.equal(a, b)
-
-
-def _verify_ab(B: int, rounds: int):
-    """Median verify() wall ms and stage ms at one thread per block and at
-    the default, alternated ABBA."""
-    from .models.circuits import SimpleMulCircuit
-    from .models.verifier_torch import TorchVerifier
-    from .refimpl.keygen import plan_from_vk
-    from .utils.serialization import parse_public_inputs, vk_from_json
-
-    art = Path(__file__).resolve().parents[1] / "examples" / "artifacts"
-    plan = plan_from_vk(SimpleMulCircuit(), vk_from_json((art / "simple_mul_vk.json").read_text()))
-    proof = np.frombuffer(bytes.fromhex((art / "simple_mul_proof.hex").read_text().strip()), np.uint8)
-    pis = parse_public_inputs((art / "simple_mul_public_input.hex").read_text())
-    v = TorchVerifier(plan)
-    batch = np.stack([proof] * B).copy()
-    proofs = torch.from_numpy(batch).cuda()
-    pis_t = torch.from_numpy(v.encode_public_inputs([pis] * B)).cuda()
-    hints = torch.from_numpy(v.compute_y_hints(batch)).cuda()
-    gen = torch.Generator().manual_seed(1)
-    default = _build.BLOCK_THREADS
-    v.verify(proofs, pis_t, hints, gen)  # warm-up
-    runs = {1: [], default: []}
-    for t in [1, default, default, 1] * rounds:
-        _build.BLOCK_THREADS = t
-        v.timings = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ok = v.verify(proofs, pis_t, hints, gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        if not bool(ok.all()):
-            raise SystemExit("block_sweep: verify() rejected an honest proof")
-        stages = {k: sum(s.elapsed_time(e) for s, e in evs) for k, evs in v.timings.items()}
-        runs[t].append((wall, stages))
-    _build.BLOCK_THREADS = default
-    for t, rs in runs.items():
-        print(json.dumps({"verify_threads_per_block": t, "batch": B, "calls": len(rs),
-                          "wall_ms": statistics.median(w for w, _ in rs),
-                          "stage_ms": {k: statistics.median(st[k] for _, st in rs) for k in rs[0][1]}}))
 
 
 def _pairing_sweep(el, er, pp, reps: int):
@@ -156,12 +114,32 @@ def _group_sweep(name: str, fn, kernel: str, lanes_attr: str, rows_attr: str, it
                       "ms_by_lanes_x_rows": ms}))
 
 
+def _chain_sweep(B: int, reps: int):
+    """The bf16 chain's device ms per warps a block at 200 steps on the JAX
+    probe's inputs, each output checked against the exact plain chain."""
+    rng = np.random.default_rng(0)
+    mat = torch.from_numpy(rng.integers(0, 127, (cuda_mma.M, cuda_mma.K)).astype(np.int8)).cuda()
+    vec = torch.from_numpy(rng.integers(0, 127, (cuda_mma.K, B)).astype(np.int8)).cuda()
+    want = cuda_mma.chain_plain(mat.cpu(), vec.cpu()).cuda()
+    fn = lambda: cuda_mma.bf16_chain(mat, vec)  # noqa: E731
+    default, ms = cuda_mma.CHAIN_WARPS, {}
+    try:
+        for warps in CHAIN_WARPS:
+            cuda_mma.CHAIN_WARPS = warps
+            if not torch.equal(fn(), want):
+                raise SystemExit(f"block_sweep: bf16_chain at {warps} warps a block differs")
+            ms[warps] = device_ms(fn, ["bf16_chain_kernel"], reps)
+    finally:
+        cuda_mma.CHAIN_WARPS = default
+    print(json.dumps({"kernel": "bf16_chain", "items": B, "steps": cuda_mma.STEPS, "default": default,
+                      "ms_by_warps": ms}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--verify-rounds", type=int, default=3, help="ABBA rounds of the verify() A/B")
     ap.add_argument("--only", default=",".join(PARTS), help="comma-separated parts to run")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -190,26 +168,30 @@ def main(argv=None) -> int:
     hints = torch.from_numpy(np.stack([FP_SPEC.encode(p[1]) for p in pool])[pick]).to(dev)
     sub_w = tc.subgroup_weights(10, 1, torch.Generator().manual_seed(args.seed))
     pts = cuda_curve.decompress_hinted(raw, hints)[0]
-    cases = (
-        ("transcript", B, "transcript_kernel", lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)),
-        ("decompress", 10 * B, "decompress_kernel", lambda: cuda_curve.decompress_hinted(raw, hints)),
-    )
-    default = _build.BLOCK_THREADS
-    for name, n, kernel, fn in cases:
-        if name not in only:
-            continue
-        _build.BLOCK_THREADS = default
+    if "transcript" in only:
+        transcript = lambda: cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)  # noqa: E731
+        if not _same(transcript(), cuda_blake.transcript_hashes_plain(buf, SIMPLE_MUL_LENGTHS)):
+            raise SystemExit("block_sweep: the transcript kernel differs from the plain Blake2b")
+        _group_sweep("transcript", transcript, "transcript_kernel", "TRANSCRIPT_LANES", "TRANSCRIPT_ROWS", B,
+                     args.reps, cuda_blake, TRANSCRIPT_LANES, TRANSCRIPT_ROWS)
+    if "bf16_chain" in only:
+        _chain_sweep(B, args.reps)
+    if "decompress" in only:
+        fn = lambda: cuda_curve.decompress_hinted(raw, hints)  # noqa: E731
+        default = _build.BLOCK_THREADS
         want = fn()
-        default_ms = device_ms(fn, [kernel], args.reps)
+        default_ms = device_ms(fn, ["decompress_kernel"], args.reps)
         ms = {}
-        for t in SIZES:
-            _build.BLOCK_THREADS = t
-            if not _same(fn(), want):
-                raise SystemExit(f"block_sweep: {name} at {t} threads per block differs")
-            ms[t] = device_ms(fn, [kernel], args.reps)
-        print(json.dumps({"kernel": name, "items": n, "default_threads": default,
+        try:
+            for t in SIZES:
+                _build.BLOCK_THREADS = t
+                if not _same(fn(), want):
+                    raise SystemExit(f"block_sweep: decompress at {t} threads per block differs")
+                ms[t] = device_ms(fn, ["decompress_kernel"], args.reps)
+        finally:
+            _build.BLOCK_THREADS = default
+        print(json.dumps({"kernel": "decompress", "items": 10 * B, "default_threads": default,
                           "default_ms": default_ms, "ms_by_threads": ms}))
-    _build.BLOCK_THREADS = default
     for name, n, fn, lanes_attr in (
         ("pow_fr", B, lambda: cuda_field.fr_pow(x_fr, FR_SPEC.N - 2), "POW_FR_LANES"),
         ("pow_fp", 10 * B, lambda: cuda_field.fp_pow(x_fp, (FP_SPEC.N + 1) >> 2), "POW_FP_LANES"),
@@ -233,8 +215,6 @@ def main(argv=None) -> int:
     if "decompress_fused" in only:
         _group_sweep("decompress_fused", lambda: cuda_curve.decompress_hinted(raw, hints, sub_w),
                      "decompress_subgroup_kernel", "DECOMPRESS_LANES", "DECOMPRESS_ROWS", 10 * B, args.reps)
-    if "verify" in only:
-        _verify_ab(B, args.verify_rounds)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])

@@ -30,7 +30,7 @@ from .curve import BETA
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
-           "subgroup.cu", "mma_probe.cu")
+           "subgroup.cu", "mma_probe.cu", "mma_chain.cu")
 HEADERS = ("field.cuh", "lanes.cuh", "curve.cuh", "group.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -44,14 +44,14 @@ SIGNATURES = {
     "ph2_lanes_step_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_pow_fp": (_P, _P, _I, _P, _I, _I, _I, _P),
     "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _I, _P),
-    "ph2_transcript": (_P, _I, _I, _P, _I, _P, _P, _I, _P),
+    "ph2_transcript": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P),
     "ph2_msm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_decompress": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ph2_subgroup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
     "ph2_mma_int8_chain": (_P, _P, _P, _I, _I, _P),
-    "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _P),
+    "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -227,13 +227,15 @@ def stream_ptr():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
-# Threads per block of the one-thread-per-item kernels (transcript,
-# unfused decompress), read at each launch: within 6 % of the fastest size
-# for each of them at the verifier's shapes on an H100 (PERF.md; python3 -m
+# Threads per block of the one-thread-per-item kernel (the unfused
+# decompress), read at each launch: within 6 % of the fastest size at the
+# verifier's shapes on an H100 (PERF.md; python3 -m
 # plutus_halo2_tpu_torch.block_sweep). The lane-group kernels take their
 # own lanes per row and rows per block (cuda_curve.MSM_LANES,
 # DECOMPRESS_LANES, SUBGROUP_LANES, ...; cuda_field.POW_FP_LANES,
-# POW_FR_LANES, POW_ROWS; cuda_pairing.LANES, ROWS_PER_BLOCK).
+# POW_FR_LANES, POW_ROWS; cuda_pairing.LANES, ROWS_PER_BLOCK;
+# cuda_blake.TRANSCRIPT_LANES, TRANSCRIPT_ROWS;
+# cuda_mma.CHAIN_WARPS).
 BLOCK_THREADS = 64
 
 

@@ -1,5 +1,5 @@
-"""Tensor-core probe kernels (``csrc/mma_probe.cu``), their plain PyTorch
-versions and their launch counters.
+"""Tensor-core probe kernels (``csrc/mma_probe.cu``, ``csrc/mma_chain.cu``),
+their plain PyTorch versions and their launch counters.
 
 They replace the three ``pallas_call``s of ``tools/mxu_probe.py`` (``:46``,
 ``:101``, ``:122``): a constant (96, 48) int8 matrix times a (48, B) int8
@@ -11,7 +11,9 @@ probe's:
   ``int8_chain(mat, vec, steps=200)`` -> (48, B) int32 after ``steps``
       dependent steps acc <- ((mat . acc) & 0x7F)[:48], acc0 = vec;
   ``bf16_chain(mat, vec, steps=200)`` -> the same chain through bf16
-      operands with f32 sums.
+      operands with f32 sums (``csrc/mma_chain.cu``: a warp's 16 batch
+      columns held in mma.sync registers for the whole chain,
+      ``CHAIN_WARPS`` warps a block).
 
 Every value is an integer in [0, 127] and a 48-term sum stays below 2^20,
 so both chains compute one integer function exactly: one plain version,
@@ -29,6 +31,7 @@ from . import _build
 M, K = 96, 48  # out rows (2 L8) x in sublimbs (L8)
 MASK = 0x7F
 STEPS = 200
+CHAIN_WARPS = 1  # warps a block of the bf16 chain (1-8), read at each launch
 
 
 def int8_dot_plain(mat, vec):
@@ -91,7 +94,7 @@ def bf16_chain(mat, vec, steps: int = STEPS):
     _check_steps(steps)
     if vec.device.type == "cpu":
         return chain_plain(mat, vec, steps)
-    out = _launch("ph2_mma_bf16_chain", mat, vec, K, steps)
+    out = _launch("ph2_mma_bf16_chain", mat, vec, K, steps, CHAIN_WARPS)
     bf16_chain.launches += 1
     return out
 

@@ -1,9 +1,13 @@
 """The lane-group kernels (csrc/msm.cu, the fused variant of
 csrc/decompress.cu and csrc/subgroup.cu over csrc/group.cuh; csrc/pow.cu
-over csrc/lanes.cuh) run on the CPU: their sources compiled by g++ through
-a small CUDA shim and run with one thread per lane, __syncwarp a barrier of
-the lane's group, a shuffle or a ballot an exchange through the group's
-slots between two such barriers, a block of two rows at a time; group.cuh's
+over csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16
+chain, csrc/mma_chain.cu) run on the CPU: their sources compiled by g++
+through a small CUDA shim and run with one thread per lane, __syncwarp a
+barrier of the lane's group, __syncthreads one of the block, a shuffle or
+a ballot an exchange through the group's slots between two such barriers
+(a 64-bit shuffle two of them), mma.sync m16n8k16 bf16 -> f32 an exchange of
+every lane's fragments through the warp's slots with the PTX ISA's
+fragment layouts; group.cuh's
 PTX carry chains replaced by their plain counterparts (field.cuh's f_add
 and f_sub, which give the same values). The outputs
 against the plain versions of the kernels' decompositions: the MSM limb
@@ -14,7 +18,12 @@ decode and valid & sub_ok everywhere; the subgroup kernel's verdicts with
 aggregate_subgroup_check_windowed and the rows' construction; the pow
 kernel limb for limb with ops/cuda_field.pow_plain for both fields at
 every lane-group width; at several lane-group widths, ragged point counts
-and 1 to 4 rounds. This checks the kernels' scheduling and arithmetic
+and 1 to 4 rounds; the transcript kernel word for word with
+cuda_blake.transcript_hashes_plain at 1 and 4 lanes a compression, ragged
+rows, one squeeze, more squeezes than a row has groups, the rows' bytes
+staged in shared memory and read from global memory; the bf16 chain
+with cuda_mma.chain_plain at ragged batch widths and 0, 1 and 7 steps; the
+mma emulation itself with a numpy product. This checks the kernels' scheduling and arithmetic
 (units over lanes, batches, barriers, shuffles and carry lookaheads,
 shared-memory layout), not the card's compiler; needs g++ with C++20."""
 
@@ -29,7 +38,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from plutus_halo2_tpu_torch.ops import _build, cuda_curve, cuda_field  # noqa: E402
+from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, window_digits  # noqa: E402
 from plutus_halo2_tpu_torch.refimpl import curve as rc  # noqa: E402
@@ -38,6 +47,8 @@ SHIM = r"""
 #pragma once
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#define PH2_CPU_SIM
 #define __device__
 #define __global__
 #define __host__
@@ -53,7 +64,10 @@ struct dim3 { unsigned x, y, z; dim3(unsigned a = 1, unsigned b = 1, unsigned c 
 extern thread_local dim3 threadIdx, blockIdx;
 extern dim3 blockDim;
 void __syncwarp(unsigned);
+void __syncthreads();
 unsigned __shfl_sync(unsigned, unsigned, int, int);
+unsigned long __shfl_sync(unsigned, unsigned long, int, int);
+unsigned long long __shfl_sync(unsigned, unsigned long long, int, int);
 unsigned __shfl_down_sync(unsigned, unsigned, unsigned, int);
 unsigned __shfl_up_sync(unsigned, unsigned, unsigned, int);
 unsigned __ballot_sync(unsigned, int);
@@ -69,6 +83,16 @@ inline int cudaDeviceGetAttribute(int*, int, int) { return 0; }
 template <class T> int cudaFuncSetAttribute(T*, int, int) { return 0; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
+inline float __int2float_rn(int v) { return (float)v; }
+inline int __float2int_rz(float v) { return (int)v; }
+inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = (unsigned long long)y << 32 | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; i++) r |= (unsigned)(v >> (8 * ((s >> (4 * i)) & 7)) & 0xff) << (8 * i);
+  return r;
+}
 """
 
 HARNESS = r"""
@@ -82,9 +106,12 @@ HARNESS = r"""
 thread_local dim3 threadIdx, blockIdx;
 dim3 blockDim;
 static thread_local std::barrier<>* group_barrier;
+static thread_local std::barrier<>* block_barrier;
 static thread_local uint32_t* group_slots;  // one word a lane of the group
+static thread_local uint32_t* group_frags;  // six words a lane of the group: mma fragments
 static int group_width;
 void __syncwarp(unsigned) { group_barrier->arrive_and_wait(); }
+void __syncthreads() { block_barrier->arrive_and_wait(); }
 // every lane of the group posts v, then reads lane src's
 static unsigned exchange(unsigned v, int src) {
   group_slots[threadIdx.x % group_width] = v;
@@ -94,6 +121,12 @@ static unsigned exchange(unsigned v, int src) {
   return r;
 }
 unsigned __shfl_sync(unsigned, unsigned v, int src, int width) { return exchange(v, src % width); }
+template <class U> static U shfl64(U v, int src, int width) {
+  const U lo = __shfl_sync(0, (unsigned)v, src, width), hi = __shfl_sync(0, (unsigned)(v >> 32), src, width);
+  return lo | hi << 32;
+}
+unsigned long __shfl_sync(unsigned, unsigned long v, int src, int width) { return shfl64(v, src, width); }
+unsigned long long __shfl_sync(unsigned, unsigned long long v, int src, int width) { return shfl64(v, src, width); }
 unsigned __shfl_down_sync(unsigned, unsigned v, unsigned d, int width) {
   const int l = threadIdx.x % width;
   return exchange(v, l + (int)d < width ? l + (int)d : l);
@@ -109,11 +142,36 @@ unsigned __ballot_sync(unsigned, int p) {
   for (int k = 0; k < group_width; k++) bits |= (exchange(p != 0, k) ? 1u : 0u) << (base + k);
   return bits;
 }
+static float bf16_half(uint32_t r, int h) { return __uint_as_float(h ? r & 0xffff0000u : r << 16); }
+// d += a . b over the warp (group_width 32): every lane posts its A and B
+// fragments; each then forms its four sums, A[row][k] from lane
+// (row % 8) 4 + (k % 8) / 2, register row / 8 + 2 (k / 8), half k % 2, and
+// B[k][n] from lane 4 n + (k % 8) / 2, register k / 8, half k % 2
+void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+  uint32_t* f = group_frags + 6 * lane;
+  for (int i = 0; i < 4; i++) f[i] = a[i];
+  for (int i = 0; i < 2; i++) f[4 + i] = b[i];
+  __syncwarp(0);
+  for (int i = 0; i < 4; i++) {
+    const int row = g + 8 * (i >> 1), col = 2 * q + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 16; k++) {
+      const float x = bf16_half(group_frags[6 * ((row % 8) * 4 + (k % 8) / 2) + row / 8 + 2 * (k / 8)], k % 2);
+      const float y = bf16_half(group_frags[6 * (col * 4 + (k % 8) / 2) + 4 + k / 8], k % 2);
+      s += x * y;
+    }
+    d[i] = s;
+  }
+  __syncwarp(0);
+}
 alignas(16) uint32_t smem[1 << 16];
 #include "msm.cu"
 #include "decompress.cu"
 #include "subgroup.cu"
 #include "pow.cu"
+#include "blake2b.cu"
+#include "mma_chain.cu"
 
 template <class T> std::vector<T> readf(const char* path, size_t n) {
   std::vector<T> v(n);
@@ -128,28 +186,83 @@ template <class T> void writef(const char* path, const std::vector<T>& v) {
   fclose(f);
 }
 
-// every block of `rows` rows in turn, one thread a lane, a barrier a group
-template <class F> void run_blocks(int B, int lanes, int rows, F body) {
-  blockDim = dim3(rows * lanes);
-  group_width = lanes;
-  for (int b = 0; b * rows < B; b++) {
+// every block in turn, one thread a lane, a barrier a group of `width`
+// lanes and one the block
+template <class F> void run_grid(int blocks, int threads, int width, F body) {
+  blockDim = dim3(threads);
+  group_width = width;
+  for (int b = 0; b < blocks; b++) {
     std::vector<std::unique_ptr<std::barrier<>>> bars;
-    std::vector<uint32_t> slots((size_t)rows * lanes);
-    for (int r = 0; r < rows; r++) bars.emplace_back(new std::barrier<>(lanes));
+    std::barrier<> block(threads);
+    std::vector<uint32_t> slots((size_t)threads), frags((size_t)threads * 6);
+    for (int r = 0; r < threads / width; r++) bars.emplace_back(new std::barrier<>(width));
     std::vector<std::thread> ts;
-    for (int t = 0; t < rows * lanes; t++)
+    for (int t = 0; t < threads; t++)
       ts.emplace_back([&, t] {
         threadIdx = dim3(t);
         blockIdx = dim3(b);
-        group_barrier = bars[t / lanes].get();
-        group_slots = slots.data() + (size_t)(t / lanes) * lanes;
+        group_barrier = bars[t / width].get();
+        block_barrier = &block;
+        group_slots = slots.data() + (size_t)(t / width) * width;
+        group_frags = frags.data() + (size_t)(t / width) * width * 6;
         body();
       });
     for (auto& t : ts) t.join();
   }
 }
 
+// blocks of `rows` rows of `lanes` lanes
+template <class F> void run_blocks(int B, int lanes, int rows, F body) {
+  run_grid((B + rows - 1) / rows, rows * lanes, lanes, body);
+}
+
 int main(int argc, char** argv) {
+  if (argv[1][0] == 't') {  // B rows of T bytes, S squeezes; lanes, rows a block, groups a row, staged
+    const int B = atoi(argv[2]), T = atoi(argv[3]), S = atoi(argv[4]), lanes = atoi(argv[5]),
+              rows = atoi(argv[6]), groups = atoi(argv[7]), off = atoi(argv[8]);
+    const bool staged = atoi(argv[9]) != 0;
+    auto raw = readf<uint8_t>("buf.bin", (size_t)B * T);
+    alignas(16) static uint8_t store[1 << 16];  // the rows from `off` bytes past a 16-byte boundary
+    memcpy(store + off, raw.data(), raw.size());
+    const uint8_t* buf = store + off;
+    auto lens = readf<int>("lens.bin", (size_t)2 * S);  // and the squeezes by final block
+    int max_fb = 0;
+    for (int s = 0; s < S; s++) max_fb = std::max(max_fb, (lens[s] - 1) / 128);
+    std::vector<int64_t> h1((size_t)B * S * 8, -1), h2((size_t)B * S * 8, -1);
+    const int threads = (rows * groups * lanes + 31) / 32 * 32;
+    run_grid((B + rows - 1) / rows, threads, lanes, [&] {
+      auto kernel = lanes == 4 ? (staged ? transcript_kernel<4, true> : transcript_kernel<4, false>)
+                               : (staged ? transcript_kernel<1, true> : transcript_kernel<1, false>);
+      kernel(buf, B, T, lens.data(), S, max_fb, rows, groups, h1.data(), h2.data());
+    });
+    writef("h1.bin", h1);
+    writef("h2.bin", h2);
+    return 0;
+  }
+  if (argv[1][0] == 'c') {  // B columns, steps, warps a block
+    const int B = atoi(argv[2]), steps = atoi(argv[3]), warps = atoi(argv[4]);
+    auto mat = readf<int8_t>("mat.bin", 96 * 48);
+    auto vec = readf<int8_t>("vec.bin", (size_t)48 * B);
+    std::vector<int32_t> out((size_t)48 * B, -1);
+    run_grid(((B + 15) / 16 + warps - 1) / warps, warps * 32, 32,
+             [&] { bf16_chain_kernel(mat.data(), vec.data(), out.data(), B, steps); });
+    writef("out.bin", out);
+    return 0;
+  }
+  if (argv[1][0] == 'x') {  // one m16n8k16 product from every lane's fragments
+    auto frag = readf<uint32_t>("frag.bin", 32 * 6);
+    auto acc = readf<float>("acc.bin", 32 * 4);
+    run_grid(1, 32, 32, [&] {
+      const int l = threadIdx.x;
+      uint32_t a[4] = {frag[6 * l], frag[6 * l + 1], frag[6 * l + 2], frag[6 * l + 3]};
+      uint32_t b[2] = {frag[6 * l + 4], frag[6 * l + 5]};
+      float d[4] = {acc[4 * l], acc[4 * l + 1], acc[4 * l + 2], acc[4 * l + 3]};
+      mma_bf16_m16n8k16(d, a, b);
+      for (int i = 0; i < 4; i++) acc[4 * l + i] = d[i];
+    });
+    writef("acc.bin", acc);
+    return 0;
+  }
   const int B = atoi(argv[2]), K = atoi(argv[3]), X = atoi(argv[4]), lanes = atoi(argv[5]), rows = 2;
   if (argv[1][0] == 'm') {  // X: the window width
     auto pts = readf<int64_t>("pts.bin", (size_t)B * K * 75);
@@ -213,6 +326,7 @@ def sim(tmp_path_factory):
         text = re.sub(r"<<<[^;]*?>>>", "", text, flags=re.S)  # launches: the harness calls the kernels
         (work / name).write_text(text)
     (work / "field_consts.cuh").write_text(_build.field_consts_header())
+    (work / "cuda_runtime.h").write_text("#pragma once\n")  # the shim stands in for it
     (work / "cuda_shim.h").write_text(SHIM)
     (work / "sim.cpp").write_text(HARNESS)
     out = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-I.", "-include", "cuda_shim.h", "sim.cpp",
@@ -349,3 +463,94 @@ def test_pow_kernel_on_cpu_threads(sim, field, lanes):
     _run(sim, "p", len(x), 0 if field == "fp" else 1, len(digits), lanes)
     got = np.fromfile(sim / "out.bin", np.int64).reshape(x.shape)
     assert np.array_equal(got, cuda_field.pow_plain(torch.from_numpy(x), spec, e).numpy())
+
+
+SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)  # models/layout.py
+
+
+@pytest.mark.parametrize("lengths,B,lanes,rows,groups,staged", [
+    (SIMPLE_MUL_LENGTHS, 5, 4, 2, 9, 1),
+    (SIMPLE_MUL_LENGTHS, 1, 1, 1, 9, 1),
+    ((1, 128, 129, 300, 1275), 5, 1, 2, 5, 1),
+    ((1, 128, 129, 300, 1275), 1, 4, 1, 5, 1),
+    ((200,), 5, 4, 2, 1, 1),               # one squeeze
+    (SIMPLE_MUL_LENGTHS, 5, 4, 2, 4, 1),   # more squeezes than groups: 3 rounds
+    ((1, 128, 129, 300, 1275), 5, 1, 3, 2, 1),
+    # unstaged: every block read from global memory (rows too long to stage)
+    (SIMPLE_MUL_LENGTHS, 5, 4, 2, 9, 0),
+    ((1275, 1, 300, 129, 128), 4, 1, 3, 2, 0),  # unsorted lengths, rounds
+    ((1, 128, 129, 300, 1275), 1, 4, 1, 5, 0),
+])
+def test_transcript_kernel_on_cpu_threads(sim, lengths, B, lanes, rows, groups, staged):
+    """Word for word against the plain Blake2b, the rows' bytes staged in
+    shared memory or read from global memory; rows of T bytes with T
+    below, at and above the staged blocks' length (bytes past a squeeze are
+    random, so the final block's masking shows), the buffer 0 to 6 bytes
+    past a 16-byte boundary (the staging's unaligned ends)."""
+    T = max(lengths) + B % 3 - 1
+    rng = np.random.default_rng(B * 31 + lanes + groups + 100 * staged)
+    buf = rng.integers(0, 256, size=(B, T), dtype=np.uint8)
+    buf.tofile(sim / "buf.bin")
+    order = sorted(range(len(lengths)), key=lambda s: ((lengths[s] - 1) // 128, s))
+    np.array(lengths + tuple(order), np.int32).tofile(sim / "lens.bin")
+    _run(sim, "t", B, T, len(lengths), lanes, rows, groups, (B + groups) % 7, staged)
+    got = [np.fromfile(sim / f"h{i}.bin", np.int64).reshape(B, len(lengths), 8) for i in (1, 2)]
+    want = cuda_blake.transcript_hashes_plain(torch.from_numpy(buf), list(lengths))
+    assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
+
+
+@pytest.mark.parametrize("B,steps,warps", [(1, 0, 1), (1, 7, 1), (17, 1, 1), (17, 7, 2), (40, 0, 2), (40, 7, 2),
+                                           (40, 1, 4)])
+def test_bf16_chain_kernel_on_cpu_threads(sim, B, steps, warps):
+    """The chain in mma.sync registers, bit for bit against the exact plain
+    chain, on the JAX probe's kind of inputs with a negative entry in each
+    operand; ragged last warps and blocks."""
+    rng = np.random.default_rng(B + steps)
+    mat = rng.integers(0, 127, (96, 48)).astype(np.int8)
+    vec = rng.integers(0, 127, (48, B)).astype(np.int8)
+    mat[5, 7], vec[3, 0] = -100, -128
+    mat.tofile(sim / "mat.bin")
+    vec.tofile(sim / "vec.bin")
+    _run(sim, "c", B, steps, warps)
+    got = np.fromfile(sim / "out.bin", np.int32).reshape(48, B)
+    want = cuda_mma.chain_plain(torch.from_numpy(mat), torch.from_numpy(vec), steps).numpy()
+    assert np.array_equal(got, want)
+
+
+def _bf16_bits(x):
+    """float32 values exact in bf16 -> their 16-bit patterns."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    assert not (bits & 0xFFFF).any()
+    return (bits >> 16).astype(np.uint32)
+
+
+def test_mma_emulation_against_numpy(sim):
+    """The simulation's mma.sync m16n8k16 against a numpy product: A (16 x
+    16) and B (16 x 8) of values exact in bf16, packed into the lanes'
+    fragments as the PTX ISA lays them out (g = lane / 4, q = lane % 4: A
+    registers (g, 2q..), (g+8, 2q..), (g, 2q+8..), (g+8, 2q+8..); B (2q.., g),
+    (2q+8.., g); the lower column or row in the low half), C and D likewise
+    ((g, 2q..), (g+8, 2q..)); every sum is exact in f32."""
+    rng = np.random.default_rng(3)
+    A = rng.integers(-128, 129, (16, 16)) / 4.0
+    Bm = rng.integers(-128, 129, (16, 8)) / 2.0
+    C = rng.integers(-1000, 1000, (16, 8)).astype(np.float64)
+    a16, b16 = _bf16_bits(A), _bf16_bits(Bm)
+    frag = np.zeros((32, 6), np.uint32)
+    acc = np.zeros((32, 4), np.float32)
+    for lane in range(32):
+        g, q = lane >> 2, lane & 3
+        for i, (r, c) in enumerate(((g, 2 * q), (g + 8, 2 * q), (g, 2 * q + 8), (g + 8, 2 * q + 8))):
+            frag[lane, i] = a16[r, c] | a16[r, c + 1] << 16
+        for i, k in enumerate((2 * q, 2 * q + 8)):
+            frag[lane, 4 + i] = b16[k, g] | b16[k + 1, g] << 16
+        acc[lane] = [C[g, 2 * q], C[g, 2 * q + 1], C[g + 8, 2 * q], C[g + 8, 2 * q + 1]]
+    frag.tofile(sim / "frag.bin")
+    acc.tofile(sim / "acc.bin")
+    _run(sim, "x")
+    d = np.fromfile(sim / "acc.bin", np.float32).reshape(32, 4)
+    got = np.zeros((16, 8))
+    for lane in range(32):
+        g, q = lane >> 2, lane & 3
+        got[g, 2 * q : 2 * q + 2], got[g + 8, 2 * q : 2 * q + 2] = d[lane, :2], d[lane, 2:]
+    assert np.array_equal(got, A @ Bm + C)

@@ -114,6 +114,78 @@ def test_transcript_kernel(dev):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)  # models/layout.py
+
+
+@pytest.mark.parametrize("B", [1, 17, 1024])
+def test_transcript_kernel_simple_mul(dev, B):
+    """simple_mul's 9 squeeze lengths at ragged B and the main path's,
+    rows 1,275 bytes long (shorter than the staged blocks), the buffer 3
+    bytes past an aligned address."""
+    rng = np.random.default_rng(B)
+    host = torch.from_numpy(rng.integers(0, 256, size=(B, 1275), dtype=np.uint8))
+    buf = torch.empty(B * 1275 + 3, dtype=torch.uint8, device=dev)[3:].view(B, 1275)
+    buf.copy_(host)
+    got = cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)
+    want = cuda_blake.transcript_hashes_plain(buf, SIMPLE_MUL_LENGTHS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_transcript_kernel_lane_groups(dev, monkeypatch):
+    """Every lanes-a-compression and rows-a-block setting gives the plain
+    digests: ragged last blocks."""
+    rng = np.random.default_rng(9)
+    buf = torch.from_numpy(rng.integers(0, 256, size=(37, 1300), dtype=np.uint8)).to(dev)
+    want = cuda_blake.transcript_hashes_plain(buf, SIMPLE_MUL_LENGTHS)
+    for lanes in (1, 4):
+        for rows in (0, 1, 3, 8):
+            monkeypatch.setattr(cuda_blake, "TRANSCRIPT_LANES", lanes)
+            monkeypatch.setattr(cuda_blake, "TRANSCRIPT_ROWS", rows)
+            got = cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (lanes, rows)
+
+
+def _hashlib_digests(buf: np.ndarray, lengths):
+    """(h1, h2) as the kernel's (B, S, 8) LE64 (lo, hi) words, by hashlib."""
+    import hashlib
+
+    def words(d):
+        return np.frombuffer(d, "<u4").astype(np.int64)
+
+    h1 = np.empty((buf.shape[0], len(lengths), 8), np.int64)
+    h2 = np.empty_like(h1)
+    for r, row in enumerate(buf):
+        for i, n in enumerate(lengths):
+            d = hashlib.blake2b(row[:n].tobytes(), digest_size=32).digest()
+            h1[r, i], h2[r, i] = words(d), words(hashlib.blake2b(d, digest_size=32).digest())
+    return h1, h2
+
+
+@pytest.mark.parametrize("B,T", [(1024, 20_000), (1024, 40_000), (3, 300_000)])
+def test_transcript_kernel_long(dev, B, T):
+    """Long transcripts: at 20 KB the rows a block from B fit in shared
+    memory, at 40 KB fewer rows a block do, at 300 KB not even one row's
+    bytes do and every block is read from global memory."""
+    rng = np.random.default_rng(T + B)
+    buf = rng.integers(0, 256, size=(B, T), dtype=np.uint8)
+    lengths = (1, 129, T // 2, T - 1, T)
+    got = cuda_blake.transcript_hashes(torch.from_numpy(buf).to(dev), lengths)
+    want = _hashlib_digests(buf, lengths)
+    assert np.array_equal(got[0].cpu().numpy(), want[0]) and np.array_equal(got[1].cpu().numpy(), want[1])
+
+
+@pytest.mark.parametrize("B", [1, 17, 1024])
+def test_transcript_kernel_rounds(dev, B):
+    """200 squeezes, more than a row's groups at 4 lanes (128 at one row a
+    block): the squeezes take two rounds; unsorted lengths."""
+    rng = np.random.default_rng(B + 200)
+    buf = rng.integers(0, 256, size=(B, 1500), dtype=np.uint8)
+    lengths = tuple(int(n) for n in rng.integers(1, 1501, size=200))
+    got = cuda_blake.transcript_hashes(torch.from_numpy(buf).to(dev), lengths)
+    want = _hashlib_digests(buf, lengths)
+    assert np.array_equal(got[0].cpu().numpy(), want[0]) and np.array_equal(got[1].cpu().numpy(), want[1])
+
+
 def _msm_rows(B, K, seed, dev):
     """(B, K) points drawn from K random G1 points and the identity, and
     random scalars with a zero and a q - 1 among them."""
@@ -191,6 +263,18 @@ def test_mma_probe_kernels(dev, B):
         short = cuda_mma.chain_plain(mat, vec, steps)
         assert torch.equal(cuda_mma.int8_chain(m_d, v_d, steps).cpu(), short)
         assert torch.equal(cuda_mma.bf16_chain(m_d, v_d, steps).cpu(), short)
+
+
+@pytest.mark.parametrize("B", [16, 2048])
+def test_bf16_chain_kernel(dev, B, monkeypatch):
+    """The bf16 chain at a single warp's width and at 128 warps, at every
+    warps-a-block setting, bit for bit against the exact plain chain."""
+    mat, vec = _probe_inputs(B, B + 1)
+    want = cuda_mma.chain_plain(mat, vec)
+    m_d, v_d = mat.to(dev), vec.to(dev)
+    for warps in (1, 2, 3, 8):
+        monkeypatch.setattr(cuda_mma, "CHAIN_WARPS", warps)
+        assert torch.equal(cuda_mma.bf16_chain(m_d, v_d).cpu(), want), warps
 
 
 @pytest.mark.parametrize("B", [1, 17, 129, 1024])
