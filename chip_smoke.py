@@ -14,8 +14,8 @@ hand-written CUDA kernels, in phases:
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
   2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``,
      and the build log's registers, stack frame and spill bytes of the
-     lane-group kernels (MSM, fused decompress, subgroup, pow, transcript)
-     and of the bf16 chain are printed;
+     lane-group kernels (MSM, fused decompress, subgroup, pow, transcript),
+     of both chains and of the Montgomery-product kernel are printed;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
      PyTorch product on 2^16 random canonical pairs (exactly equal), the Fp
      kernel timed beside its bound;
@@ -37,7 +37,7 @@ hand-written CUDA kernels, in phases:
      the per-point test); the
      three tensor-core probe kernels (int8 product,
      int8 and bf16 200-step chains) on the JAX probe's inputs at B = 1024
-     and at B = 1, 17, 128, bit for bit, the two chains equal; the bf16
+     and at B = 1, 17, 128, bit for bit, the two chains equal; each
      chain's step latency on one warp and its 200-step floor. Each kernel
      is timed by its device time (``ms``: the summed durations of its
      kernel over a ``torch.profiler`` window of calls,
@@ -412,7 +412,7 @@ def main() -> int:
         if line.startswith("==") or any(k in line for k in ("entry function", "registers", "stack frame")):
             print(f"[build] {line.strip()}")
     lane_groups = {r["function"]: r for name in ("msm_kernel", "subgroup_kernel", "pow_kernel", "transcript_kernel",
-                                                 "bf16_chain_kernel")
+                                                 "bf16_chain_kernel", "int8_chain_kernel", "mont_mul_kernel")
                    for r in _build.kernel_resources(name)}  # subgroup_kernel names the fused decompress too
     for r in lane_groups.values():
         print(f"[build] {r['function']}: {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
@@ -450,7 +450,8 @@ def main() -> int:
         if not torch.equal(got, want):
             bad = int((got != want).any(-1).sum())
             _fail(f"{spec.name} mont_mul kernel differs from the plain product on {bad} of 65536")
-        print(f"[field] {spec.name} mont_mul kernel == plain on 65536 pairs")
+        print(f"[field] {spec.name} mont_mul kernel == plain on 65536 pairs "
+              f"({cuda_field.MONT_MUL_THREADS} threads a block)")
         if spec is FP_SPEC:  # one CIOS product per pair; each pair read, its product written
             record("mont_mul", "plutus_halo2_tpu_torch/csrc/field_test.cu", "tests/test_pallas_core.py:139", 0,
                    _times(lambda: kern(a, b), "mont_mul_kernel", 20),
@@ -760,7 +761,7 @@ def main() -> int:
            # every device kernel the library call launches
            _times(lambda: torch._int_mm(mat, vec), None, 50)[0])
     for name, kern, kernel, source, line, peak in (
-        ("int8_chain", cuda_mma.int8_chain, "mma_probe_kernel", "mma_probe.cu", 101, TC_INT8_OPS_PER_S),
+        ("int8_chain", cuda_mma.int8_chain, "int8_chain_kernel", "mma_chain.cu", 101, TC_INT8_OPS_PER_S),
         ("bf16_chain", cuda_mma.bf16_chain, "bf16_chain_kernel", "mma_chain.cu", 122, TC_BF16_FLOPS),
     ):
         times = _times(lambda: kern(mat, vec), kernel, 20)
@@ -771,11 +772,13 @@ def main() -> int:
     # one warp alone (16 columns): a step's latency, without the card's
     # other warps; the 200 dependent steps can take no less than 200 of them
     mat16, vec16 = probe_inputs(16)
-    one = [_times(lambda: cuda_mma.bf16_chain(mat16, vec16, n), "bf16_chain_kernel", 20)[0] for n in (0, steps)]
-    step_us = (one[1] - one[0]) * 1e3 / steps
-    print(f"[kernel] bf16_chain step latency on one warp: {step_us:.4f} us ({one[1]:.4f} ms at {steps} steps, "
-          f"{one[0]:.4f} at 0); dependent-step floor {steps * step_us / 1e3:.4f} ms at B = {B} "
-          f"(device {results['bf16_chain']['ms']:.4f}); {cuda_mma.CHAIN_WARPS} warps a block")
+    for name, kern, kernel, warps in (("int8_chain", cuda_mma.int8_chain, "int8_chain_kernel", 1),
+                                      ("bf16_chain", cuda_mma.bf16_chain, "bf16_chain_kernel", cuda_mma.CHAIN_WARPS)):
+        one = [_times(lambda: kern(mat16, vec16, n), kernel, 20)[0] for n in (0, steps)]
+        step_us = (one[1] - one[0]) * 1e3 / steps
+        print(f"[kernel] {name} step latency on one warp: {step_us:.4f} us ({one[1]:.4f} ms at {steps} steps, "
+              f"{one[0]:.4f} at 0); dependent-step floor {steps * step_us / 1e3:.4f} ms at B = {B} "
+              f"(device {results[name]['ms']:.4f}); {warps} warps a block")
 
     # ---- 5. the paths ------------------------------------------------------
     counters = {

@@ -13,6 +13,10 @@ are swept over lanes per row and rows per block (0: the fewest that fill
 the SMs once), each setting's output checked against the default's: the
 transcript kernel (1, 4 lanes a compression x 0, 1, 2, 4, 8, 16 rows, a
 group a squeeze) at (B, simple_mul's 9 squeeze lengths); the bf16 chain (1, 2, 4, 8 warps a block) at 200 steps on B columns; the
+int8 chain (one warp a block, its C entry takes no block size) at 200
+steps on 16, B, 8448 and 16896 columns (one warp alone; one, four and eight
+warps an SM); the Montgomery-product test kernel (32 to 512 threads a
+block) on 2^16 Fp and Fr pairs; the
 pairing
 (16, 32 lanes x 1, 2, 4, 8 rows) at B and at the RLC group check's B / 8
 rows; the MSM (4, 8, 16, 32 lanes x 0, 1, 2, 4, 8 rows) at (B, 16) and at
@@ -20,8 +24,9 @@ the RLC aggregation's (B / 4, 8); the fused decompress and the aggregate
 subgroup kernel (the same grid) at (B, 10), one round; the pow kernel
 (lanes per element: Fr 2, 4, 8, Fp 2, 4; x 4, 8, 16, 32 elements per
 block) at the Fr inversion's (B, 1) and the Fp square-root ladder's
-(B, 10). ``--only`` picks some of transcript, bf16_chain, pow_fr, pow_fp,
-decompress, subgroup, pairing, msm, decompress_fused. Last, it prints the
+(B, 10). ``--only`` picks some of transcript, bf16_chain, int8_chain,
+mont_mul, pow_fr, pow_fp, decompress, subgroup, pairing, msm,
+decompress_fused. Last, it prints the
 card's ``nvidia-smi`` name and power limit. Needs a CUDA device."""
 
 from __future__ import annotations
@@ -50,7 +55,10 @@ POW_ROWS = (4, 8, 16, 32)  # and elements per block
 TRANSCRIPT_LANES = (1, 4)  # lanes a compression of the transcript kernel
 TRANSCRIPT_ROWS = (0, 1, 2, 4, 8, 16)  # and rows per block (0: from B)
 CHAIN_WARPS = (1, 2, 4, 8)  # warps a block of the bf16 chain
-PARTS = ("transcript", "bf16_chain", "pow_fr", "pow_fp", "decompress", "subgroup", "pairing", "msm",
+INT8_CHAIN_COLUMNS = (16, 1024, 8448, 16896)  # the int8 chain's widths: 1, 64, 528 and 1056 warps
+MONT_MUL_THREADS = (32, 64, 128, 256, 512)  # threads a block of the Montgomery-product kernel
+MONT_MUL_PAIRS = 1 << 16
+PARTS = ("transcript", "bf16_chain", "int8_chain", "mont_mul", "pow_fr", "pow_fp", "decompress", "subgroup", "pairing", "msm",
          "decompress_fused")
 # the squeeze lengths of simple_mul's transcript (models/layout.py)
 SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)
@@ -135,6 +143,44 @@ def _chain_sweep(B: int, reps: int):
                       "ms_by_warps": ms}))
 
 
+def _int8_chain_widths(reps: int):
+    """The int8 chain's device ms and us a step at 200 steps per batch
+    width, each output checked against the exact plain chain."""
+    rng = np.random.default_rng(0)
+    mat = torch.from_numpy(rng.integers(0, 127, (cuda_mma.M, cuda_mma.K)).astype(np.int8)).cuda()
+    ms = {}
+    for n in INT8_CHAIN_COLUMNS:
+        vec = torch.from_numpy(rng.integers(0, 127, (cuda_mma.K, n)).astype(np.int8)).cuda()
+        fn = lambda: cuda_mma.int8_chain(mat, vec)  # noqa: E731
+        if not torch.equal(fn(), cuda_mma.chain_plain(mat, vec)):
+            raise SystemExit(f"block_sweep: int8_chain on {n} columns differs")
+        t = device_ms(fn, ["int8_chain_kernel"], reps)
+        ms[n] = {"ms": t, "us_per_step": t * 1e3 / cuda_mma.STEPS}
+    print(json.dumps({"kernel": "int8_chain", "steps": cuda_mma.STEPS, "warps_a_block": 1, "by_columns": ms}))
+
+
+def _mont_mul_sweep(rng, dev, reps: int):
+    """The Montgomery-product kernel's device ms per threads a block on
+    2^16 pairs of each field, each output checked against the plain
+    product."""
+    default = cuda_field.MONT_MUL_THREADS
+    for spec, kern in ((FP_SPEC, cuda_field.fp_mont_mul), (FR_SPEC, cuda_field.fr_mont_mul)):
+        a, b = _canon(spec, (MONT_MUL_PAIRS,), rng, dev), _canon(spec, (MONT_MUL_PAIRS,), rng, dev)
+        want = cuda_field.mont_mul_plain(a, b, spec)
+        fn = lambda: kern(a, b)  # noqa: E731
+        ms = {}
+        try:
+            for t in MONT_MUL_THREADS:
+                cuda_field.MONT_MUL_THREADS = t
+                if not torch.equal(fn(), want):
+                    raise SystemExit(f"block_sweep: mont_mul {spec.name} at {t} threads a block differs")
+                ms[t] = device_ms(fn, ["mont_mul_kernel"], reps)
+        finally:
+            cuda_field.MONT_MUL_THREADS = default
+        print(json.dumps({"kernel": f"mont_mul {spec.name}", "items": MONT_MUL_PAIRS, "default_threads": default,
+                          "ms_by_threads": ms}))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=1024)
@@ -176,6 +222,10 @@ def main(argv=None) -> int:
                      args.reps, cuda_blake, TRANSCRIPT_LANES, TRANSCRIPT_ROWS)
     if "bf16_chain" in only:
         _chain_sweep(B, args.reps)
+    if "int8_chain" in only:
+        _int8_chain_widths(args.reps)
+    if "mont_mul" in only:
+        _mont_mul_sweep(rng, dev, args.reps)
     if "decompress" in only:
         fn = lambda: cuda_curve.decompress_hinted(raw, hints)  # noqa: E731
         default = _build.BLOCK_THREADS

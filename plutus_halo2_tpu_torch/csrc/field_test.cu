@@ -3,39 +3,125 @@
 // tests/test_pallas_core.py:123 (test_pallas_call_interpret_mul, :139).
 //
 // What it computes: a * b / R for every element pair of two (n, L) slabs of
-// the port's Montgomery limbs, through load_port / f_mul / store_port, so a
-// field-library bug shows up here before it hides inside a larger kernel.
+// the port's Montgomery limbs (R = R16 = 2^(16 L)), through the library's
+// f_mul, so a field-library bug shows up here before it hides inside a
+// larger kernel.
 //
-// Bound: integer multiply throughput, 4 CIOS products per element (two
-// input conversions, the product, one output conversion): Fp 4 * 288 =
-// 1,152 and Fr 4 * 128 = 512 32x32 word multiplies.
+// Bound: its bytes. An element reads two rows and writes one, 3 x 8 L
+// bytes (Fp 600, Fr 408), at 3.35 TB/s; the one Montgomery product the
+// function needs (Fp 300, Fr 136 word products) takes less at the card's
+// integer rate.
 //
-// Design: one thread per element.
+// Design. The port's two boundary conversions fold into one constant: with
+// x = a R16 and y = b R16 packed from the limbs (R32 = 2^(32 NW), the
+// kernels' R), f_mul(x, y) = a b R16^2 / R32, and f_mul by F::to_k =
+// R32^2 / R16 mod N gives a b R16, the port's product. It is fully reduced,
+// so its limbs are the plain version's: two CIOS products an element where
+// load_port, f_mul and store_port take four. A block's rows are contiguous
+// in the slabs, so the block moves them through shared memory with 16-byte
+// accesses, neighbouring threads on neighbouring addresses (read from
+// global memory a row a thread, neighbours sit 8 L bytes apart and no
+// access coalesces); each thread then reads
+// its own row there (a row's 64-bit words fall on distinct banks across a
+// half-warp: a stride of 50 or 34 words) and writes its product back over
+// it. `threads` a block (cuda_field.MONT_MUL_THREADS, swept by
+// block_sweep), two slabs of shared memory a block.
 #include "lanes.cuh"
 
-template <class F>
-__global__ void mont_mul_kernel(const int64_t* a, const int64_t* b, int64_t* out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[F::NW], y[F::NW];
-  load_port<F>(x, a + (size_t)i * F::L16);
-  load_port<F>(y, b + (size_t)i * F::L16);
-  f_mul<F>(x, x, y);
-  store_port<F>(out + (size_t)i * F::L16, x);
+constexpr int MONT_MUL_MAX_THREADS = 512;
+
+// int64 words a block's slab of `threads` rows of L words holds: the rows
+// and a head word, rounded up to 16 bytes
+__host__ __device__ constexpr int slab_words(int threads, int L) { return (threads * L + 2) & ~1; }
+
+// whether p lies 8 bytes past a 16-byte boundary: then word j of p sits in
+// word j + 1 of a slab, so that p's 16-byte aligned words land on the
+// slab's 16-byte aligned words
+__device__ __forceinline__ int head_of(const int64_t* p) { return (int)((reinterpret_cast<uintptr_t>(p) >> 3) & 1); }
+
+// words [0, nw) of src into s[h, h + nw), h = head_of(src): 16-byte loads,
+// and the head and tail word alone
+__device__ __forceinline__ void stage_in(int64_t* s, const int64_t* src, int nw) {
+  const int h = head_of(src), np = (nw - h) >> 1;
+  const uint4* g = reinterpret_cast<const uint4*>(src + h);
+  uint4* d = reinterpret_cast<uint4*>(s + 2 * h);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < np; i += blockDim.x) d[i] = g[i];
+  if (threadIdx.x == 0 && h) s[1] = src[0];
+  if (threadIdx.x == 0 && ((nw - h) & 1)) s[h + nw - 1] = src[nw - 1];
+}
+
+// s[h, h + nw) to words [0, nw) of dst, h = head_of(dst): 16-byte stores
+__device__ __forceinline__ void stage_out(int64_t* dst, const int64_t* s, int nw) {
+  const int h = head_of(dst), np = (nw - h) >> 1;
+  const uint4* g = reinterpret_cast<const uint4*>(s + 2 * h);
+  uint4* d = reinterpret_cast<uint4*>(dst + h);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < np; i += blockDim.x) d[i] = g[i];
+  if (threadIdx.x == 0 && h) dst[0] = s[1];
+  if (threadIdx.x == 0 && ((nw - h) & 1)) dst[nw - 1] = s[h + nw - 1];
 }
 
 template <class F>
-static int launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n, void* stream) {
-  if (n > 0) mont_mul_kernel<F><<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(a, b, out, n);
+__global__ void __launch_bounds__(MONT_MUL_MAX_THREADS)
+mont_mul_kernel(const int64_t* a, const int64_t* b, int64_t* out, int n) {
+  constexpr int L = F::L16, NW = F::NW;
+  extern __shared__ __align__(16) uint32_t smem[];
+  int64_t* sa = reinterpret_cast<int64_t*>(smem);  // a's rows, then the products'
+  int64_t* sb = sa + slab_words(blockDim.x, L);    // b's rows
+  const int r = threadIdx.x, r0 = blockIdx.x * blockDim.x, rows = min((int)blockDim.x, n - r0), nw = rows * L;
+  const size_t w0 = (size_t)r0 * L;
+  stage_in(sa, a + w0, nw);
+  stage_in(sb, b + w0, nw);
+  __syncthreads();
+  uint32_t x[NW], y[NW];
+  const int64_t* ra = sa + head_of(a + w0) + r * L;
+  const int64_t* rb = sb + head_of(b + w0) + r * L;
+#pragma unroll
+  for (int i = 0; i < NW; i++) {  // limbs 2 NW .. L - 1 of a canonical value are 0
+    x[i] = r < rows ? (uint32_t)ra[2 * i] | (uint32_t)ra[2 * i + 1] << 16 : 0u;
+    y[i] = r < rows ? (uint32_t)rb[2 * i] | (uint32_t)rb[2 * i + 1] << 16 : 0u;
+  }
+  __syncthreads();  // every row read before a product's row, at out's head, overwrites one
+  if (r < rows) {
+    uint32_t c[NW];
+#pragma unroll
+    for (int i = 0; i < NW; i++) c[i] = F::to_k(i);
+    f_mul<F>(x, x, y);
+    f_mul<F>(x, x, c);
+    int64_t* ro = sa + head_of(out + w0) + r * L;
+#pragma unroll
+    for (int i = 0; i < NW; i++) {
+      ro[2 * i] = x[i] & 0xffffu;
+      ro[2 * i + 1] = x[i] >> 16;
+    }
+#pragma unroll
+    for (int i = 2 * NW; i < L; i++) ro[i] = 0;
+  }
+  __syncthreads();
+  stage_out(out + w0, sa, nw);
+}
+
+// threads a block: a multiple of 32 up to MONT_MUL_MAX_THREADS
+template <class F>
+static int launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n, int threads, void* stream) {
+  if (threads < 32 || threads > MONT_MUL_MAX_THREADS || threads % 32) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  const int smem = 2 * slab_words(threads, F::L16) * (int)sizeof(int64_t);
+  cudaError_t e = cudaFuncSetAttribute(mont_mul_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  mont_mul_kernel<F><<<(n + threads - 1) / threads, threads, smem, (cudaStream_t)stream>>>(a, b, out, n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ph2_mont_mul_fp(const int64_t* a, const int64_t* b, int64_t* out, int n, void* stream) {
-  return launch_mont_mul<FpT>(a, b, out, n, stream);
+extern "C" int ph2_mont_mul_fp(const int64_t* a, const int64_t* b, int64_t* out, int n, int threads,
+                               void* stream) {
+  return launch_mont_mul<FpT>(a, b, out, n, threads, stream);
 }
 
-extern "C" int ph2_mont_mul_fr(const int64_t* a, const int64_t* b, int64_t* out, int n, void* stream) {
-  return launch_mont_mul<FrT>(a, b, out, n, stream);
+extern "C" int ph2_mont_mul_fr(const int64_t* a, const int64_t* b, int64_t* out, int n, int threads,
+                               void* stream) {
+  return launch_mont_mul<FrT>(a, b, out, n, threads, stream);
 }
 
 // ---- latency probe of the Fp primitives -------------------------------------

@@ -1,57 +1,27 @@
-// Tensor-core probe kernels: replace two of the three pallas_calls of
-// tools/mxu_probe.py (:46 the single int8 product, :101 the int8 chain);
-// the third (:122, the bf16 chain) is csrc/mma_chain.cu.
+// The tensor-core probe's single product: replaces tools/mxu_probe.py:46
+// (the first of its three pallas_calls; the two chains, :101 and :122, are
+// csrc/mma_chain.cu).
 //
-// What they compute: mat (96, 48) int8 times vec (48, B) int8, the shape of
+// What it computes: mat (96, 48) int8 times vec (48, B) int8, the shape of
 // a Montgomery reduction by a constant modulus in 8-bit sublimbs (a 2 L8 x
 // L8 Toeplitz matrix of a 24-limb field times a batch of B columns):
-//   ph2_mma_int8_dot   out (96, B) int32 = mat . vec, exact int32 sums;
-//   ph2_mma_int8_chain out (48, B) int32 after `steps` dependent steps
-//                      acc <- ((mat . acc) & 0x7F)[:48] as int8, acc0 = vec.
-// Every value is an integer in [0, 127], so a 48-term sum is below 2^20:
-// exact in int32.
+//   ph2_mma_int8_dot   out (96, B) int32 = mat . vec, exact int32 sums.
 //
-// Bound: the single product moves 96*48 + 48 B + 4*96 B bytes and needs
-// 2*96*48*B operations, far below the tensor cores' rate (1,979 int8 TOPS
-// dense on an H100 SXM), so it is bound by bytes. A chain is 200 products
-// of which each needs the one before it; a step's output is only rows 0-47,
-// so the function needs 2*48*48*B operations per step, although each step
-// computes all 96 rows as the Pallas kernel does. Its time is 200 step
-// latencies (product, store to shared memory, barrier, mask), far above any
-// throughput bound. That step latency is what the probe reports.
+// Bound: it moves 96*48 + 48 B + 4*96 B bytes and needs 2*96*48*B
+// operations, far below the tensor cores' rate (1,979 int8 TOPS dense on
+// an H100 SXM), so it is bound by bytes.
 //
-// Design of the single product (int8_dot_kernel): one warp per block and 16
-// columns per warp, so B = 1024 spreads over 64 blocks; mma.sync
-// m16n8k16 s8.s8.s32 with its fragments loaded straight from global memory
-// (a row of mat gives a 4-byte A register; B registers pack 4 k-consecutive
-// bytes of a column) and the accumulator fragments stored straight to out,
-// with no staging in shared memory. wgmma, whose tiles are 64 rows with B
-// from shared memory, does not fit a 96 x 48 product at this size and was
-// not used.
-//
-// Design of the int8 chain: the instruction is the kernel's own choice,
-// nvcuda::wmma m16n16k16 (mma.sync underneath), signed char -> int. One
-// block per tile of NT = 64 columns, four warps, one 16-column strip per
-// warp; mat and the tile's accumulator sit in shared memory as contiguous
-// 16x16 tiles (so every fragment pointer is 256-bit aligned as wmma
-// requires); the ragged last tile is zero-padded in shared memory and not
-// stored. The chain loops its steps inside the block. Each step computes
-// all 96 rows, stores the fragments to shared memory, synchronises, then
-// masks and narrows rows 0-47 back into the accumulator.
+// Design (int8_dot_kernel): one warp per block and 16 columns per warp, so
+// B = 1024 spreads over 64 blocks; mma.sync m16n8k16 s8.s8.s32 with its
+// fragments loaded straight from global memory (a row of mat gives a 4-byte
+// A register; B registers pack 4 k-consecutive bytes of a column) and the
+// accumulator fragments stored straight to out, with no staging in shared
+// memory. wgmma, whose tiles are 64 rows with B from shared memory, does
+// not fit a 96 x 48 product at this size and was not used.
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-using namespace nvcuda;
 
 constexpr int M = 96, K = 48, T = 16, MT = M / T, KT = K / T;  // 6 x 3 tiles of mat
-constexpr int NT = 64, WARPS = NT / T;                          // columns and warps per block
-
-// offset of element (k, n) of the accumulator: col-major 16x16 tiles, tile
-// (k / 16, n / 16) at ((n / 16) * KT + k / 16) * 256
-__device__ __forceinline__ int b_at(int k, int n) {
-  return ((n / T) * KT + k / T) * T * T + (n % T) * T + (k % T);
-}
 
 // out (96, B) = mat (96, 48) . vec (48, B): 6 row tiles x 3 k-steps of
 // m16n8k16 per 8-column tile, two column tiles per warp
@@ -98,60 +68,7 @@ __global__ void __launch_bounds__(32) int8_dot_kernel(const int8_t* mat, const i
   }
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-mma_probe_kernel(const int8_t* mat, const int8_t* vec, int32_t* out, int B, int steps) {
-  __shared__ __align__(128) signed char sA[M * K];   // row-major 16x16 tiles, tile (mi, ki) at (mi * KT + ki) * 256
-  __shared__ __align__(128) signed char sB[K * NT];  // the column tile's accumulator, b_at layout
-  __shared__ __align__(128) int sC[M * NT];          // one step's product, row-major, leading dimension NT
-  // (the accumulator's rows 0-47 are the next step's input)
-  const int n0 = blockIdx.x * NT, tid = threadIdx.x, warp = tid / 32;
-  for (int i = tid; i < M * K; i += blockDim.x) {
-    const int r = i / K, c = i % K;
-    sA[((r / T) * KT + c / T) * T * T + (r % T) * T + c % T] = mat[i];
-  }
-  for (int i = tid; i < K * NT; i += blockDim.x) {
-    const int k = i / NT, n = i % NT;
-    sB[b_at(k, n)] = n0 + n < B ? vec[(size_t)k * B + n0 + n] : 0;
-  }
-  __syncthreads();
-
-  wmma::fragment<wmma::matrix_a, T, T, T, signed char, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, T, T, T, signed char, wmma::col_major> fb[KT];
-  wmma::fragment<wmma::accumulator, T, T, T, int> fc;
-  for (int s = 0; s < steps; s++) {
-#pragma unroll
-    for (int ki = 0; ki < KT; ki++) wmma::load_matrix_sync(fb[ki], sB + (warp * KT + ki) * T * T, T);
-#pragma unroll
-    for (int mi = 0; mi < MT; mi++) {
-      wmma::fill_fragment(fc, 0);
-#pragma unroll
-      for (int ki = 0; ki < KT; ki++) {
-        wmma::load_matrix_sync(fa, sA + (mi * KT + ki) * T * T, T);
-        wmma::mma_sync(fc, fa, fb[ki], fc);
-      }
-      wmma::store_matrix_sync(sC + mi * T * NT + warp * T, fc, NT, wmma::mem_row_major);
-    }
-    __syncthreads();
-    for (int i = tid; i < K * NT; i += blockDim.x) {
-      const int k = i / NT, n = i % NT;
-      sB[b_at(k, n)] = (signed char)(sC[k * NT + n] & 0x7F);
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < K * NT; i += blockDim.x) {
-    const int k = i / NT, n = i % NT;
-    if (n0 + n < B) out[(size_t)k * B + n0 + n] = sB[b_at(k, n)];
-  }
-}
-
 extern "C" int ph2_mma_int8_dot(const int8_t* mat, const int8_t* vec, int32_t* out, int B, void* stream) {
   if (B > 0) int8_dot_kernel<<<(B + 15) / 16, 32, 0, (cudaStream_t)stream>>>(mat, vec, out, B);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ph2_mma_int8_chain(const int8_t* mat, const int8_t* vec, int32_t* out, int B, int steps,
-                                  void* stream) {
-  if (B > 0)
-    mma_probe_kernel<<<(B + NT - 1) / NT, WARPS * 32, 0, (cudaStream_t)stream>>>(mat, vec, out, B, steps);
   return (int)cudaGetLastError();
 }

@@ -38,8 +38,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: (argtypes); every one returns cudaGetLastError() as int
 SIGNATURES = {
-    "ph2_mont_mul_fp": (_P, _P, _P, _I, _P),
-    "ph2_mont_mul_fr": (_P, _P, _P, _I, _P),
+    "ph2_mont_mul_fp": (_P, _P, _P, _I, _I, _P),
+    "ph2_mont_mul_fr": (_P, _P, _P, _I, _I, _P),
     "ph2_fp_step_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ph2_lanes_step_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_pow_fp": (_P, _P, _I, _P, _I, _I, _I, _P),

@@ -18,6 +18,10 @@ plutus_halo2_tpu_torch.block_sweep --only pow_fp,pow_fr`` sweeps them. The
 settings are the fastest on an H100 at the verifier's shapes: 4 lanes for
 both fields, 8 elements a block (PERF.md).
 
+The Montgomery-product test kernel runs ``MONT_MUL_THREADS`` elements a
+block (a multiple of 32 up to 512), read at each launch; ``block_sweep
+--only mont_mul`` sweeps it.
+
 Each wrapper takes the port's int64 16-bit-limb Montgomery tensors. A CPU
 tensor goes to the plain version; a CUDA tensor goes to the kernel, or the
 wrapper raises."""
@@ -32,6 +36,7 @@ from .limb import FP_SPEC, FR_SPEC, FieldSpec, mont_mul, mont_pow_static, window
 POW_FP_LANES = 4
 POW_FR_LANES = 4
 POW_ROWS = 8
+MONT_MUL_THREADS = 128
 
 
 def pow_plain(x, spec: FieldSpec, exponent: int):
@@ -96,7 +101,7 @@ def _mont_mul(fn: str, spec: FieldSpec, a, b):
     out = torch.empty_like(a)
     lib = _build.library()
     _build.check(getattr(lib, fn)(_build.ptr(a), _build.ptr(b), _build.ptr(out),
-                                  a.numel() // spec.L, _build.stream_ptr()), fn)
+                                  a.numel() // spec.L, MONT_MUL_THREADS, _build.stream_ptr()), fn)
     return out
 
 

@@ -1,5 +1,6 @@
-"""Tensor-core probe kernels (``csrc/mma_probe.cu``, ``csrc/mma_chain.cu``),
-their plain PyTorch versions and their launch counters.
+"""Tensor-core probe kernels (``csrc/mma_probe.cu``: the single product;
+``csrc/mma_chain.cu``: the two chains), their plain PyTorch versions and
+their launch counters.
 
 They replace the three ``pallas_call``s of ``tools/mxu_probe.py`` (``:46``,
 ``:101``, ``:122``): a constant (96, 48) int8 matrix times a (48, B) int8
@@ -9,10 +10,12 @@ probe's:
 
   ``int8_dot(mat, vec)``              -> (96, B) int32, mat . vec;
   ``int8_chain(mat, vec, steps=200)`` -> (48, B) int32 after ``steps``
-      dependent steps acc <- ((mat . acc) & 0x7F)[:48], acc0 = vec;
+      dependent steps acc <- ((mat . acc) & 0x7F)[:48], acc0 = vec, on
+      s8 operands with s32 sums (a warp's 16 batch columns held in
+      mma.sync registers for the whole chain, in a lane permutation of
+      the accumulator's columns; one warp a block);
   ``bf16_chain(mat, vec, steps=200)`` -> the same chain through bf16
-      operands with f32 sums (``csrc/mma_chain.cu``: a warp's 16 batch
-      columns held in mma.sync registers for the whole chain,
+      operands with f32 sums (held in registers likewise,
       ``CHAIN_WARPS`` warps a block).
 
 Every value is an integer in [0, 127] and a 48-term sum stays below 2^20,

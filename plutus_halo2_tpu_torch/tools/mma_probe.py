@@ -13,9 +13,9 @@ against the exact plain chain (``cuda_mma.chain_plain`` on CPU copies), and
 prints the build time, the single
 product's ms and each chain's ms and us per product (the least of 3 calls
 after a first one; CUDA events on the card), then the card's name and power
-limit. B defaults to 128. Runs on the card (hand-written WMMA kernels,
-``csrc/mma_probe.cu``) unless ``--device cpu`` asks for the plain versions;
-raises without a card."""
+limit. B defaults to 128. Runs on the card (hand-written mma.sync kernels,
+``csrc/mma_probe.cu`` and ``csrc/mma_chain.cu``) unless ``--device cpu``
+asks for the plain versions; raises without a card."""
 
 from __future__ import annotations
 

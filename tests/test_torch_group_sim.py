@@ -1,18 +1,19 @@
 """The lane-group kernels (csrc/msm.cu, the fused variant of
 csrc/decompress.cu and csrc/subgroup.cu over csrc/group.cuh; csrc/pow.cu
-over csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16
-chain, csrc/mma_chain.cu) run on the CPU: their sources compiled by g++
-through a small CUDA shim and run with one thread per lane, __syncwarp a
-barrier of the lane's group, __syncthreads one of the block, a shuffle or
-a ballot an exchange through the group's slots between two such barriers
-(a 64-bit shuffle two of them), mma.sync m16n8k16 bf16 -> f32 an exchange of
-every lane's fragments through the warp's slots with the PTX ISA's
-fragment layouts; group.cuh's
-PTX carry chains replaced by their plain counterparts (field.cuh's f_add
-and f_sub, which give the same values). The outputs
-against the plain versions of the kernels' decompositions: the MSM limb
-for limb with ops/curve.msm_windowed at both window widths; points and
-valid flags bit for bit with ops/curve.decompress(..., y_hint=), sub_ok
+over csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16 and
+int8 chains, csrc/mma_chain.cu; the Montgomery-product test kernel,
+csrc/field_test.cu) run on the CPU: their sources compiled by g++ through
+a small CUDA shim and run with one thread per lane, __syncwarp a barrier
+of the lane's group, __syncthreads one of the block, a shuffle or a ballot
+an exchange through the group's slots between two such barriers (a 64-bit
+shuffle two of them), mma.sync (m16n8k16 bf16 -> f32, m16n8k16 and
+m16n8k32 s8 -> s32) an exchange of every lane's fragments through the
+warp's slots with the PTX ISA's fragment layouts; group.cuh's and
+field_test.cu's PTX carry chains replaced by their plain counterparts
+(field.cuh's f_add, f_sub and f_mul, which give the same values). The
+outputs against the plain versions of the kernels' decompositions: the MSM
+limb for limb with ops/curve.msm_windowed at both window widths; points
+and valid flags bit for bit with ops/curve.decompress(..., y_hint=), sub_ok
 with ops/curve.aggregate_subgroup_check_windowed on rows whose points all
 decode and valid & sub_ok everywhere; the subgroup kernel's verdicts with
 aggregate_subgroup_check_windowed and the rows' construction; the pow
@@ -21,11 +22,14 @@ every lane-group width; at several lane-group widths, ragged point counts
 and 1 to 4 rounds; the transcript kernel word for word with
 cuda_blake.transcript_hashes_plain at 1 and 4 lanes a compression, ragged
 rows, one squeeze, more squeezes than a row has groups, the rows' bytes
-staged in shared memory and read from global memory; the bf16 chain
-with cuda_mma.chain_plain at ragged batch widths and 0, 1 and 7 steps; the
-mma emulation itself with a numpy product. This checks the kernels' scheduling and arithmetic
-(units over lanes, batches, barriers, shuffles and carry lookaheads,
-shared-memory layout), not the card's compiler; needs g++ with C++20."""
+staged in shared memory and read from global memory; both chains with
+cuda_mma.chain_plain at ragged batch widths and 0, 1 and 7 steps; the
+Montgomery-product kernel with cuda_field.mont_mul_plain for both fields
+at ragged counts, one and several blocks, the slabs 0 or 8 bytes past a
+16-byte boundary; the mma emulations themselves with a numpy product.
+This checks the kernels' scheduling and arithmetic (units over lanes,
+batches, barriers, shuffles and carry lookaheads, shared-memory layout),
+not the card's compiler; needs g++ with C++20."""
 
 import os
 import re
@@ -96,6 +100,7 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
 """
 
 HARNESS = r"""
+#include <algorithm>
 #include <barrier>
 #include <cstdio>
 #include <cstdlib>
@@ -165,6 +170,30 @@ void mma_bf16_m16n8k16(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b
   }
   __syncwarp(0);
 }
+static int s8_at(uint32_t r, int k) { return (int8_t)(r >> (8 * (k % 4))); }
+// d += a . b over the warp (group_width 32), s8 fragments of depth K (16 or
+// 32): every lane posts its K / 8 A and K / 16 B registers; each then forms
+// its four sums, A[row][k] from lane (row % 8) 4 + (k % 16) / 4, register
+// row / 8 + 2 (k / 16), byte k % 4, and B[k][n] from lane 4 n + (k % 16) / 4,
+// register k / 16, byte k % 4
+static void mma_s8(int (&d)[4], const uint32_t* a, const uint32_t* b, int K) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+  uint32_t* f = group_frags + 6 * lane;
+  for (int i = 0; i < K / 8; i++) f[i] = a[i];
+  for (int i = 0; i < K / 16; i++) f[4 + i] = b[i];
+  __syncwarp(0);
+  for (int i = 0; i < 4; i++) {
+    const int row = g + 8 * (i >> 1), col = 2 * q + (i & 1);
+    int s = d[i];
+    for (int k = 0; k < K; k++)
+      s += s8_at(group_frags[6 * ((row % 8) * 4 + (k % 16) / 4) + row / 8 + 2 * (k / 16)], k) *
+           s8_at(group_frags[6 * (col * 4 + (k % 16) / 4) + 4 + k / 16], k);
+    d[i] = s;
+  }
+  __syncwarp(0);
+}
+void mma_s8_m16n8k32(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) { mma_s8(d, a, b, 32); }
+void mma_s8_m16n8k16(int (&d)[4], const uint32_t (&a)[2], uint32_t b) { mma_s8(d, a, &b, 16); }
 alignas(16) uint32_t smem[1 << 16];
 #include "msm.cu"
 #include "decompress.cu"
@@ -172,6 +201,7 @@ alignas(16) uint32_t smem[1 << 16];
 #include "pow.cu"
 #include "blake2b.cu"
 #include "mma_chain.cu"
+#include "field_test.cu"
 
 template <class T> std::vector<T> readf(const char* path, size_t n) {
   std::vector<T> v(n);
@@ -249,6 +279,56 @@ int main(int argc, char** argv) {
     writef("out.bin", out);
     return 0;
   }
+  if (argv[1][0] == 'i') {  // B columns, steps; one warp a block
+    const int B = atoi(argv[2]), steps = atoi(argv[3]);
+    auto mat = readf<int8_t>("mat.bin", 96 * 48);
+    auto vec = readf<int8_t>("vec.bin", (size_t)48 * B);
+    std::vector<int32_t> out((size_t)48 * B, -1);
+    run_grid((B + 15) / 16, 32, 32, [&] { int8_chain_kernel(mat.data(), vec.data(), out.data(), B, steps); });
+    writef("out.bin", out);
+    return 0;
+  }
+  if (argv[1][0] == 'y') {  // one s8 product of depth K (16 or 32) from every lane's fragments
+    const int K = atoi(argv[2]);
+    auto frag = readf<uint32_t>("frag.bin", 32 * 6);
+    auto acc = readf<int32_t>("acc.bin", 32 * 4);
+    run_grid(1, 32, 32, [&] {
+      const int l = threadIdx.x;
+      uint32_t a[4] = {frag[6 * l], frag[6 * l + 1], frag[6 * l + 2], frag[6 * l + 3]};
+      uint32_t b[2] = {frag[6 * l + 4], frag[6 * l + 5]};
+      int d[4] = {acc[4 * l], acc[4 * l + 1], acc[4 * l + 2], acc[4 * l + 3]};
+      if (K == 32) mma_s8_m16n8k32(d, a, b);
+      else mma_s8_m16n8k16(d, reinterpret_cast<uint32_t(&)[2]>(a), b[0]);
+      for (int i = 0; i < 4; i++) acc[4 * l + i] = d[i];
+    });
+    writef("acc.bin", acc);
+    return 0;
+  }
+  if (argv[1][0] == 'f') {  // n elements, 0 Fp or 1 Fr, threads a block; a's, b's and out's first words
+    // 0 or 1 words past a 16-byte boundary
+    const int n = atoi(argv[2]), fr = atoi(argv[3]), threads = atoi(argv[4]);
+    const int off[3] = {atoi(argv[5]), atoi(argv[6]), atoi(argv[7])};
+    const size_t words = (size_t)n * (fr ? FrT::L16 : FpT::L16);
+    std::vector<int64_t> slab[3];
+    for (int i = 0; i < 3; i++) slab[i].assign(words + 4, -7);  // a sentinel around the rows
+    int64_t* p[3];
+    for (int i = 0; i < 3; i++) {
+      p[i] = slab[i].data() + off[i];
+      while ((reinterpret_cast<uintptr_t>(p[i]) & 15) != 8u * off[i]) p[i]++;
+    }
+    auto a = readf<int64_t>("a.bin", words), b = readf<int64_t>("b.bin", words);
+    std::copy(a.begin(), a.end(), p[0]);
+    std::copy(b.begin(), b.end(), p[1]);
+    run_grid((n + threads - 1) / threads, threads, 32, [&] {
+      if (fr) mont_mul_kernel<FrT>(p[0], p[1], p[2], n);
+      else mont_mul_kernel<FpT>(p[0], p[1], p[2], n);
+    });
+    std::vector<int64_t> out(p[2], p[2] + words);
+    for (int64_t* q = slab[2].data(); q < slab[2].data() + slab[2].size(); q++)
+      if ((q < p[2] || q >= p[2] + words) && *q != -7) return 4;  // a word outside the rows written
+    writef("out.bin", out);
+    return 0;
+  }
   if (argv[1][0] == 'x') {  // one m16n8k16 product from every lane's fragments
     auto frag = readf<uint32_t>("frag.bin", 32 * 6);
     auto acc = readf<float>("acc.bin", 32 * 4);
@@ -321,8 +401,9 @@ def sim(tmp_path_factory):
     csrc = os.path.join(os.path.dirname(_build.__file__), "..", "csrc")
     for name in os.listdir(csrc):
         text = open(os.path.join(csrc, name)).read()
-        if name == "group.cuh":
+        if name in ("group.cuh", "field_test.cu"):
             text = text.replace("fp_add_cc(", "f_add<FpT>(").replace("fp_sub_cc(", "f_sub<FpT>(")
+            text = text.replace("fp_mul_cc(", "f_mul<FpT>(")
         text = re.sub(r"<<<[^;]*?>>>", "", text, flags=re.S)  # launches: the harness calls the kernels
         (work / name).write_text(text)
     (work / "field_consts.cuh").write_text(_build.field_consts_header())
@@ -517,6 +598,51 @@ def test_bf16_chain_kernel_on_cpu_threads(sim, B, steps, warps):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("B,steps", [(1, 0), (1, 7), (17, 1), (17, 7), (40, 0), (40, 1), (40, 7)])
+def test_int8_chain_kernel_on_cpu_threads(sim, B, steps):
+    """The int8 chain in mma.sync s8 registers, in the lane permutation of
+    its accumulators, bit for bit against the exact plain chain, with a
+    negative entry in each operand (read as signed bytes, masked by its
+    two's complement, returned sign-extended at 0 steps); a ragged last
+    warp."""
+    rng = np.random.default_rng(100 + B + steps)
+    mat = rng.integers(0, 127, (96, 48)).astype(np.int8)
+    vec = rng.integers(0, 127, (48, B)).astype(np.int8)
+    mat[5, 7], vec[3, 0] = -100, -128
+    mat.tofile(sim / "mat.bin")
+    vec.tofile(sim / "vec.bin")
+    _run(sim, "i", B, steps)
+    got = np.fromfile(sim / "out.bin", np.int32).reshape(48, B)
+    want = cuda_mma.chain_plain(torch.from_numpy(mat), torch.from_numpy(vec), steps).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("field,n,threads,offsets", [
+    ("fp", 1, 32, (0, 0, 0)), ("fp", 127, 64, (1, 0, 1)), ("fp", 129, 128, (0, 1, 0)), ("fp", 300, 128, (1, 1, 1)),
+    ("fr", 1, 32, (1, 1, 0)), ("fr", 127, 128, (0, 0, 1)), ("fr", 129, 64, (1, 0, 0)), ("fr", 300, 256, (0, 1, 1)),
+])
+def test_mont_mul_kernel_on_cpu_threads(sim, field, n, threads, offsets):
+    """The Montgomery-product test kernel (two CIOS products an element,
+    rows staged through shared memory with 16-byte accesses) limb for limb
+    against the plain product: ragged counts in one and several blocks,
+    each slab 0 or 8 bytes past a 16-byte boundary, no word written outside
+    the output's rows; 0, 1 and N - 1 among the inputs, as limbs and in
+    the Montgomery domain."""
+    spec = FP_SPEC if field == "fp" else FR_SPEC
+    rng = np.random.default_rng(n + threads)
+    edge = [spec.encode(v) for v in (0, 1, spec.N - 1)] + [spec.to_mont(v) for v in (1, spec.N - 1)]
+    rand = [spec.encode(int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N) for _ in range(n)]
+    a = np.stack((edge + rand)[:n]).astype(np.int64)
+    b = np.stack((rand[::-1] + edge)[:n]).astype(np.int64)
+    if n > len(edge):
+        b[len(edge) : 2 * len(edge)] = edge  # every edge value times every other
+    a.tofile(sim / "a.bin")
+    b.tofile(sim / "b.bin")
+    _run(sim, "f", n, 0 if field == "fp" else 1, threads, *offsets)
+    got = np.fromfile(sim / "out.bin", np.int64).reshape(n, spec.L)
+    assert np.array_equal(got, cuda_field.mont_mul_plain(torch.from_numpy(a), torch.from_numpy(b), spec).numpy())
+
+
 def _bf16_bits(x):
     """float32 values exact in bf16 -> their 16-bit patterns."""
     bits = np.asarray(x, np.float32).view(np.uint32)
@@ -550,6 +676,41 @@ def test_mma_emulation_against_numpy(sim):
     _run(sim, "x")
     d = np.fromfile(sim / "acc.bin", np.float32).reshape(32, 4)
     got = np.zeros((16, 8))
+    for lane in range(32):
+        g, q = lane >> 2, lane & 3
+        got[g, 2 * q : 2 * q + 2], got[g + 8, 2 * q : 2 * q + 2] = d[lane, :2], d[lane, 2:]
+    assert np.array_equal(got, A @ Bm + C)
+
+
+@pytest.mark.parametrize("K", [16, 32])
+def test_mma_s8_emulation_against_numpy(sim, K):
+    """The simulation's mma.sync m16n8k16 and m16n8k32 s8 -> s32 against a
+    numpy product: signed bytes A (16 x K) and B (K x 8) packed into the
+    lanes' fragments as the PTX ISA lays them out (g = lane / 4, q = lane %
+    4; 4 k-consecutive bytes a register, the lowest k in the low byte: A
+    registers (g, 4q..), (g+8, 4q..), and for K = 32 (g, 16+4q..), (g+8,
+    16+4q..); B (4q.., g), and for K = 32 (16+4q.., g)), C and D as int32
+    (g, 2q..), (g+8, 2q..)."""
+    rng = np.random.default_rng(K)
+    A = rng.integers(-128, 128, (16, K))
+    Bm = rng.integers(-128, 128, (K, 8))
+    C = rng.integers(-10**6, 10**6, (16, 8))
+    byte = lambda x: int(x) & 0xFF  # noqa: E731
+    frag = np.zeros((32, 6), np.uint32)
+    acc = np.zeros((32, 4), np.int32)
+    for lane in range(32):
+        g, q = lane >> 2, lane & 3
+        for j in range(K // 8):  # a0 (g, k0..), a1 (g + 8, k0..), k0 = 4q (+16 for a2, a3)
+            r, k0 = g + 8 * (j % 2), 4 * q + 16 * (j // 2)
+            frag[lane, j] = sum(byte(A[r, k0 + i]) << (8 * i) for i in range(4))
+        for j in range(K // 16):
+            frag[lane, 4 + j] = sum(byte(Bm[4 * q + 16 * j + i, g]) << (8 * i) for i in range(4))
+        acc[lane] = [C[g, 2 * q], C[g, 2 * q + 1], C[g + 8, 2 * q], C[g + 8, 2 * q + 1]]
+    frag.tofile(sim / "frag.bin")
+    acc.tofile(sim / "acc.bin")
+    _run(sim, "y", K)
+    d = np.fromfile(sim / "acc.bin", np.int32).reshape(32, 4)
+    got = np.zeros((16, 8), np.int64)
     for lane in range(32):
         g, q = lane >> 2, lane & 3
         got[g, 2 * q : 2 * q + 2], got[g + 8, 2 * q : 2 * q + 2] = d[lane, :2], d[lane, 2:]

@@ -54,6 +54,27 @@ def test_mont_mul_kernel(dev, spec):
     assert torch.equal(kern(a, b), cuda_field.mont_mul_plain(a, b, spec))
 
 
+@pytest.mark.parametrize("n", [1, 127, 129, 4097])
+@pytest.mark.parametrize("spec", [FP_SPEC, FR_SPEC], ids=["fp", "fr"])
+def test_mont_mul_kernel_ragged(dev, spec, n, monkeypatch):
+    """The Montgomery-product kernel at ragged counts, at every block size
+    the sweep tries, on slabs 8 bytes past a 16-byte boundary too (views
+    from row 1), with 0, 1 and N - 1 as limbs and in the Montgomery domain
+    times every other value, limb for limb against the plain product."""
+    edge = torch.from_numpy(np.stack([spec.encode(v) for v in (0, 1, spec.N - 1)]
+                                     + [spec.to_mont(v) for v in (1, spec.N - 1)])).to(dev)
+    a, b = _canon(spec, (n + 1,), 3 + n, dev), _canon(spec, (n + 1,), 4 + n, dev)
+    k = min(len(edge), n)
+    a[1 : 1 + k], b[1 + n - k :] = edge[:k], edge[:k]
+    if n > 2 * len(edge):
+        b[1 : 1 + len(edge)] = edge.flip(0)
+    kern = cuda_field.fp_mont_mul if spec is FP_SPEC else cuda_field.fr_mont_mul
+    for threads in (32, 64, 128, 256, 512):
+        monkeypatch.setattr(cuda_field, "MONT_MUL_THREADS", threads)
+        for x, y in ((a[:n], b[:n]), (a[1:], b[1:]), (a[1:], b[:n])):
+            assert torch.equal(kern(x, y), cuda_field.mont_mul_plain(x, y, spec)), (threads, x.data_ptr() % 16)
+
+
 def _pow_case(which, shape, seed, dev):
     """(x, exponent, kernel wrapper, spec): canonical random values with 0,
     1 and N - 1 in the Montgomery domain and the values whose limbs are 1
@@ -263,6 +284,18 @@ def test_mma_probe_kernels(dev, B):
         short = cuda_mma.chain_plain(mat, vec, steps)
         assert torch.equal(cuda_mma.int8_chain(m_d, v_d, steps).cpu(), short)
         assert torch.equal(cuda_mma.bf16_chain(m_d, v_d, steps).cpu(), short)
+
+
+@pytest.mark.parametrize("B", [1, 16, 17, 40, 1000, 2048])
+def test_int8_chain_kernel(dev, B):
+    """The int8 chain at ragged widths and several step counts, with a
+    negative entry in each operand, bit for bit against the exact plain
+    chain."""
+    mat, vec = _probe_inputs(B, B + 2)
+    mat[5, 7], vec[3, 0] = -100, -128
+    m_d, v_d = mat.to(dev), vec.to(dev)
+    for steps in (0, 1, 2, 7, 200):
+        assert torch.equal(cuda_mma.int8_chain(m_d, v_d, steps).cpu(), cuda_mma.chain_plain(mat, vec, steps)), steps
 
 
 @pytest.mark.parametrize("B", [16, 2048])
