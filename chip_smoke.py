@@ -6,9 +6,10 @@
 Drives the port's main path — ``TorchVerifier.verify()`` of the simple_mul
 circuit (halo2-book KZG) in its default mode (y-hints, the aggregate
 subgroup test fused into hinted decompression), the modes beside it,
-``verify_rlc`` and the serving loop, at the headline batch B = 1024 — and
-the probe path (the tensor-core probe and the stage probe) through their
-hand-written CUDA kernels, in phases:
+``verify_rlc`` and the serving loop, at the headline batch B = 1024 — the
+GWC19 flavor and the lookup and ATMS circuits, and the probe path (the
+tensor-core probe and the stage probe) through their hand-written CUDA
+kernels, in phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
@@ -46,7 +47,13 @@ hand-written CUDA kernels, in phases:
      launch included), beside the least time the functions' operations
      need (the probe kernels' at the tensor cores' peak rates);
      ``torch._int_mm`` is timed beside the int8 product by the device time
-     of every kernel it launches;
+     of every kernel it launches; then the MSM at the circuits' multi-open
+     K = 3, 17, 19, 32, 36 on random points (the per-point references the
+     prefix sums of one pass of products), and the fused decompress kernel
+     at the proof points of simple_mul GWC19 (K = 11), lookup_table (15)
+     and atms_with_lookups (18), crafted as at K = 10: each against its
+     plain versions on the same (B = 1024, K) tensors that are then timed
+     and bounded;
   5. the paths, each on B = 1024 rows: a mixed batch of the committed
      simple_mul proof, its committed tampered twin, one bit-flipped row, one
      row with a corrupted proof scalar, one row whose first advice
@@ -59,6 +66,21 @@ hand-written CUDA kernels, in phases:
      every kernel it runs (counts set to 0 before the path, read after it;
      the "launches" of the kernels line sum these first calls); paths (a),
      (b) and (e) are then timed, wall and stages, over three more calls;
+  5b. the circuits, each on B = 1024 rows: the committed set's honest
+     proof, its invalid twin every 8th row, a corrupted proof scalar and,
+     on an honest row, a corrupted y-hint (``circuit_batch``,
+     ``corrupt_hint``; tests/test_torch_circuits.py holds the construction
+     against the spec verifier), through (f) simple_mul GWC19 in the default
+     mode, (g) its hintless aggregate mode, (h) its verify_rlc (group 8) on
+     the mixed and on an honest batch, (i) lookup_table, (j) atms, (k)
+     atms_with_lookups and (l) atms_228_408 (k = 22), each in the default
+     mode; each path's verdicts, launches and multi-open MSM sizes are
+     checked, and the transcript kernel at each set's squeeze layout and,
+     on (g), the Fp pow and the subgroup kernel at K = 11 are held against
+     their plain versions on the very arguments the path gave them; (f),
+     (g), (i), (j), (k) are timed as (a); then a
+     VerificationService (batch 256, RLC group 8) answers 298 GWC19
+     submissions;
   6. serving: a VerificationService (batch 1024, RLC group 8) answers 1100
      submissions, one full and one padded batch, and every future must
      resolve to its expected verdict;
@@ -77,6 +99,7 @@ Needs a CUDA device; exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -299,6 +322,37 @@ def _hashlib_digests(buf, lengths):
     return h1, h2
 
 
+# the circuits phase's mixed batches: the committed invalid twin every 8th
+# row from row 3, a corrupted proof scalar on SCALAR_ROW, a corrupted y-hint
+# on HINT_ROW (which only the hinted modes see)
+CIRCUIT_SCALAR_ROW, CIRCUIT_HINT_ROW = 1, 7
+
+
+def circuit_batch(proof, invalid, scalar_offset: int, n: int):
+    """(batch (n, PLEN) uint8, expected (n,) bool): the honest proof, its
+    committed invalid twin every 8th row from row 3, and on
+    CIRCUIT_SCALAR_ROW the honest proof with a bit of its first scalar
+    (at proof byte scalar_offset) flipped; expected is the spec verifier's
+    verdict on each row."""
+    import numpy as np
+
+    batch = np.stack([proof] * n).copy()
+    expected = np.ones(n, bool)
+    batch[3::8] = invalid
+    expected[3::8] = False
+    batch[CIRCUIT_SCALAR_ROW, scalar_offset + 3] ^= 0x40
+    expected[CIRCUIT_SCALAR_ROW] = False
+    return batch, expected
+
+
+def corrupt_hint(hints):
+    """The hints with CIRCUIT_HINT_ROW's third point's hint off by one bit:
+    that row then fails to decode in the hinted modes."""
+    hints = hints.copy()
+    hints[CIRCUIT_HINT_ROW, 2, 0] ^= 1
+    return hints
+
+
 def transcript_checks(buf, lengths, p1, p2, rng):
     """The transcript kernel beside the default: at 1 lane a compression on
     the batch's buffers, at ragged B = 1 and 17, each against the plain
@@ -374,7 +428,9 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from plutus_halo2_tpu_torch.models.circuits import SimpleMulCircuit
+    from plutus_halo2_tpu_torch.models.atms import AtmsCircuit, AtmsLookupCircuit
+    from plutus_halo2_tpu_torch.models.circuits import LookupRangeCircuit, SimpleMulCircuit
+    from plutus_halo2_tpu_torch.models.plan import FLAVOR_GWC, FLAVOR_HALO2
     from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
     from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_pairing
     from plutus_halo2_tpu_torch.ops import curve as tc
@@ -386,6 +442,10 @@ def main() -> int:
     from plutus_halo2_tpu_torch.utils.serialization import parse_public_inputs, vk_from_json
 
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
+
+    def stamp(label):
+        print(f"[time] {label}: {time.perf_counter() - t_run:.1f} s into the run")
     rng = np.random.default_rng(SEED)
 
     # ---- 1. environment -------------------------------------------------
@@ -441,6 +501,8 @@ def main() -> int:
         print(f"[kernel] {name}: exact, {ms:.4f} ms device, {call:.4f} ms per call (plain {plain_ms:.3f} ms, "
               f"bound {bound[0]:.5f} ms by {bound[1]}{lib})")
 
+    stamp("build")
+
     # ---- 3. field phase --------------------------------------------------
     for spec, kern in ((FP_SPEC, cuda_field.fp_mont_mul), (FR_SPEC, cuda_field.fr_mont_mul)):
         a, b = rand_canon(spec, (1 << 16,)), rand_canon(spec, (1 << 16,))
@@ -458,22 +520,49 @@ def main() -> int:
                    _call_ms(lambda: cuda_field.mont_mul_plain(a, b, spec), 5),
                    _bound_ms(2 * a.shape[0] * _cios_products(12), 8 * 3 * a.numel()))
 
+    stamp("field phase")
+
     # ---- the slice's inputs --------------------------------------------
+    def load_set(art_dir, name, circuit, flavor):
+        """(plan, honest proof, invalid twin, public inputs) of a committed set."""
+        def read(suffix):
+            with open(os.path.join(art_dir, f"{name}_{suffix}")) as f:
+                return f.read()
+
+        hexes = [np.frombuffer(bytes.fromhex(read(f"{n}.hex").strip()), np.uint8)
+                 for n in ("proof", "proof_invalid")]
+        return (plan_from_vk(circuit, vk_from_json(read("vk.json")), flavor=flavor), *hexes,
+                parse_public_inputs(read("public_input.hex")))
+
     art = os.path.join(root, "examples", "artifacts")
-    with open(os.path.join(art, "simple_mul_vk.json")) as f:
-        vk = vk_from_json(f.read())
-    proofs = {}
-    for name in ("proof", "proof_invalid"):
-        with open(os.path.join(art, f"simple_mul_{name}.hex")) as f:
-            proofs[name] = np.frombuffer(bytes.fromhex(f.read().strip()), np.uint8)
-    with open(os.path.join(art, "simple_mul_public_input.hex")) as f:
-        pis = parse_public_inputs(f.read())
-    plan = plan_from_vk(SimpleMulCircuit(), vk)
+    plan, proof_h, proof_bad, pis = load_set(art, "simple_mul", SimpleMulCircuit(), FLAVOR_HALO2)
     verifier = TorchVerifier(plan, subgroup_check="off")  # device defaults to cuda
-    batch = np.stack([proofs["proof"]] * B).copy()
+
+    # the circuits phase's sets: the GWC19 flavor of simple_mul (the port's
+    # own committed set), the lookup and ATMS circuits (the JAX package's);
+    # one ATMS construction serves every party count
+    atms_args = ([(0, 1)] * 2, [None] * 2, 0, 1)
+    sets = {
+        "simple_mul_gwc19": load_set(os.path.join(root, "plutus_halo2_tpu_torch", "artifacts"),
+                                     "simple_mul_gwc19", SimpleMulCircuit(), FLAVOR_GWC),
+        "lookup_table": load_set(art, "lookup_table", LookupRangeCircuit(values=(3, 9, 14), bits=4),
+                                 FLAVOR_HALO2),
+        "atms": load_set(art, "atms", AtmsCircuit(*atms_args), FLAVOR_HALO2),
+        "atms_with_lookups": load_set(art, "atms_with_lookups", AtmsLookupCircuit(*atms_args), FLAVOR_HALO2),
+        "atms_228_408": load_set(art, "atms_228_408", AtmsCircuit(*atms_args), FLAVOR_HALO2),
+    }
+    set_verifiers = {}
+
+    def set_verifier(name):
+        """The default-mode verifier (aggregate subgroup test, device cuda) of a set."""
+        if name not in set_verifiers:
+            set_verifiers[name] = TorchVerifier(sets[name][0])
+        return set_verifiers[name]
+
+    batch = np.stack([proof_h] * B).copy()
     expected = np.ones(B, bool)
     invalid_rows = np.arange(3, B, 8)
-    batch[invalid_rows] = proofs["proof_invalid"]
+    batch[invalid_rows] = proof_bad
     expected[invalid_rows] = False
     flip_row = 5
     batch[flip_row, 100] ^= 0x40
@@ -626,64 +715,82 @@ def main() -> int:
     P = FP_SPEC.N
     evil = _nonsubgroup_point(P, rc.g1_in_subgroup)
     lay = verifier.layout
-    honest_raw = np.stack([proofs["proof"][o : o + 48] for o in lay.point_offsets.values()])
-    honest_hints = verifier.compute_y_hints(proofs["proof"][None])[0]
-    pt0 = rc.g1_decompress(honest_raw[0].tobytes())
-    y0 = limbs_to_int(honest_hints[0])
     x_nr = next(x for x in range(1, 1000) if pow((x**3 + 4) % P, (P - 1) // 2, P) == P - 1)
     flagged = lambda v: bytes([v.to_bytes(48, "big")[0] | 0x80]) + v.to_bytes(48, "big")[1:]  # noqa: E731
-    crafted = [
-        (rc.g1_compress(evil), evil[1], True, False),                # outside G1
-        (bytes([0xC0] + [0] * 47), 0, True, True),                   # infinity
-        (bytes([0xC0, 1] + [0] * 46), 0, False, True),               # bad infinity
-        (flagged(P + 2), 3, False, True),                            # x >= p
-        (flagged(x_nr), 12345, False, True),                         # x^3 + 4 not a square
-        (bytes([honest_raw[0, 0] & 0x7F]) + honest_raw[0, 1:].tobytes(), y0, False, True),  # no flag
-        (honest_raw[0].tobytes(), y0 + 1, False, True),              # wrong hint
-        (honest_raw[0].tobytes(), y0 + (7 << 384), True, True),      # oversized hint: mod 2^384
-    ]
-    assert rc.g1_decompress(honest_raw[0].tobytes()) == pt0
-    raw = np.broadcast_to(honest_raw, (B, n_pts, 48)).copy()
-    hints = np.broadcast_to(honest_hints, (B, n_pts, FP_SPEC.L)).copy()
-    decodes = np.ones((B, n_pts), bool)
-    member = np.ones(B, bool)
-    for r in range(B):
-        if r % 4:
-            enc, hint, ok, in_g1 = crafted[(r // 4) % len(crafted)]
-            raw[r, r % n_pts] = np.frombuffer(enc, np.uint8)
-            hints[r, r % n_pts] = [(hint >> (16 * j)) & 0xFFFF for j in range(FP_SPEC.L)]
-            decodes[r, r % n_pts], member[r] = ok, in_g1
+
+    def crafted_rows(v, proof, n):
+        """(raw, hints, decodes, member) at n rows of proof's points under
+        verifier v's layout, with their hints, three of every four rows with
+        one point crafted from the proof's first point."""
+        honest_raw = np.stack([proof[o : o + 48] for o in v.layout.point_offsets.values()])
+        honest_hints = v.compute_y_hints(proof[None])[0]
+        y0 = limbs_to_int(honest_hints[0])
+        crafted = [
+            (rc.g1_compress(evil), evil[1], True, False),                # outside G1
+            (bytes([0xC0] + [0] * 47), 0, True, True),                   # infinity
+            (bytes([0xC0, 1] + [0] * 46), 0, False, True),               # bad infinity
+            (flagged(P + 2), 3, False, True),                            # x >= p
+            (flagged(x_nr), 12345, False, True),                         # x^3 + 4 not a square
+            (bytes([honest_raw[0, 0] & 0x7F]) + honest_raw[0, 1:].tobytes(), y0, False, True),  # no flag
+            (honest_raw[0].tobytes(), y0 + 1, False, True),              # wrong hint
+            (honest_raw[0].tobytes(), y0 + (7 << 384), True, True),      # oversized hint: mod 2^384
+        ]
+        k = honest_raw.shape[0]
+        raw = np.broadcast_to(honest_raw, (n, k, 48)).copy()
+        hints = np.broadcast_to(honest_hints, (n, k, FP_SPEC.L)).copy()
+        decodes = np.ones((n, k), bool)
+        member = np.ones(n, bool)
+        for r in range(n):
+            if r % 4:
+                enc, hint, ok, in_g1 = crafted[(r // 4) % len(crafted)]
+                raw[r, r % k] = np.frombuffer(enc, np.uint8)
+                hints[r, r % k] = [(hint >> (16 * j)) & 0xFFFF for j in range(FP_SPEC.L)]
+                decodes[r, r % k], member[r] = ok, in_g1
+        return raw, hints, decodes, member
+
+    def decompress_check(raw, hints, decodes, member, sub_w):
+        """The fused and the unfused kernel against the plain version and
+        the rows' construction: (fused output, plain output, plain ms)."""
+        raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
+        shape = tuple(raw.shape[:2])
+        got = cuda_curve.decompress_hinted(raw_t, hints_t, sub_w)
+        want, plain_ms = _plain(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w))
+        unfused = cuda_curve.decompress_hinted(raw_t, hints_t)
+        torch.cuda.synchronize()
+        rows_ok = got[1].all(-1)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            _fail(f"decompress kernel's points or valid flags differ from the plain version at {shape}")
+        if not (torch.equal(unfused[0], got[0]) and torch.equal(unfused[1], got[1])):
+            _fail(f"unfused decompress kernel differs from the fused one at {shape}")
+        if not torch.equal(got[1].cpu(), torch.from_numpy(decodes)):
+            _fail(f"decompress valid flags differ from the encodings' construction at {shape}")
+        if not (torch.equal(got[2][rows_ok], want[2][rows_ok])
+                and torch.equal(got[2] & rows_ok, want[2] & rows_ok)):
+            _fail(f"fused subgroup verdicts differ from the plain version on rows that decode at {shape}")
+        if not torch.equal(got[2][rows_ok].cpu(), torch.from_numpy(member)[rows_ok.cpu()]):
+            _fail(f"fused subgroup verdicts differ from the rows' construction at {shape}")
+        if not torch.equal(got[2][rows_ok], tc.aggregate_subgroup_check(want[0], sub_w)[rows_ok]):
+            _fail(f"fused subgroup verdicts differ from the per-point aggregate test on rows that decode "
+                  f"at {shape}")
+        return got, want, plain_ms
+
+    def decompress_bound(raw, hints, got, sub_w):
+        live_pts = (~tc.is_identity(got[0])).cpu().numpy()
+        dec_products = DECODE_FP_PRODUCTS * int((raw[..., 0] & 0x40 == 0).sum())
+        agg_products = sum(_aggregate_fp_products(sub_w.tolist(), list(lv)) for lv in live_pts)
+        return _bound_ms(2 * (dec_products + agg_products) * _cios_products(12),
+                         raw.size + 8 * hints.size + 8 * got[0].numel() + got[1].numel() + raw.shape[0])
+
+    raw, hints, decodes, member = crafted_rows(verifier, proof_h, B)
     raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
     sub_w = tc.subgroup_weights(n_pts, 1, torch.Generator().manual_seed(SEED))
-    got = cuda_curve.decompress_hinted(raw_t, hints_t, sub_w)
-    want, plain_ms = _plain(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t, sub_w))
-    unfused = cuda_curve.decompress_hinted(raw_t, hints_t)
-    torch.cuda.synchronize()
+    got, want, plain_ms = decompress_check(raw, hints, decodes, member, sub_w)
     rows_ok = got[1].all(-1)
-    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-        _fail("decompress kernel's points or valid flags differ from the plain version")
-    if not (torch.equal(unfused[0], got[0]) and torch.equal(unfused[1], got[1])):
-        _fail("unfused decompress kernel differs from the fused one")
-    if not torch.equal(got[1].cpu(), torch.from_numpy(decodes)):
-        _fail("decompress valid flags differ from the encodings' construction")
-    if not (torch.equal(got[2][rows_ok], want[2][rows_ok])
-            and torch.equal(got[2] & rows_ok, want[2] & rows_ok)):
-        _fail("fused subgroup verdicts differ from the plain version on rows that decode")
-    if not torch.equal(got[2][rows_ok].cpu(), torch.from_numpy(member)[rows_ok.cpu()]):
-        _fail("fused subgroup verdicts differ from the rows' construction")
-    if not torch.equal(got[2][rows_ok], tc.aggregate_subgroup_check(want[0], sub_w)[rows_ok]):
-        _fail("fused subgroup verdicts differ from the per-point aggregate test on rows that decode")
-    w_host = sub_w.tolist()
-    live_pts = (~tc.is_identity(got[0])).cpu().numpy()
-    dec_products = DECODE_FP_PRODUCTS * int((raw[..., 0] & 0x40 == 0).sum())
-    agg_products = sum(_aggregate_fp_products(w_host, list(lv)) for lv in live_pts)
     record("decompress", "plutus_halo2_tpu_torch/csrc/decompress.cu",
            "plutus_halo2_tpu/ops/pallas_curve.py:367",
            limb_err(got[0], want[0]),
            _times(lambda: cuda_curve.decompress_hinted(raw_t, hints_t, sub_w), "decompress_subgroup_kernel", 20),
-           plain_ms,
-           _bound_ms(2 * (dec_products + agg_products) * _cios_products(12),
-                     raw.size + 8 * hints.size + 8 * got[0].numel() + got[1].numel() + B))
+           plain_ms, decompress_bound(raw, hints, got, sub_w))
     unfused_ms = _times(lambda: cuda_curve.decompress_hinted(raw_t, hints_t), "decompress_kernel", 20)[0]
     print(f"[kernel] decompress rows: {int(rows_ok.sum())} of {B} decode, "
           f"{int((rows_ok & got[2]).sum())} of them in G1; unfused variant {unfused_ms:.4f} ms device "
@@ -779,6 +886,48 @@ def main() -> int:
         print(f"[kernel] {name} step latency on one warp: {step_us:.4f} us ({one[1]:.4f} ms at {steps} steps, "
               f"{one[0]:.4f} at 0); dependent-step floor {steps * step_us / 1e3:.4f} ms at B = {B} "
               f"(device {results[name]['ms']:.4f}); {warps} warps a block")
+
+    stamp("kernel phase")
+
+    # the MSM and the fused decompress kernel at the circuits phase's shapes,
+    # each held against its plain versions on the full (B, K) tensors that
+    # are then timed and bounded. The MSM at the multi-open K of the GWC19
+    # flavor (3, 17) and of the lookup and ATMS circuits (19, 32, 36), on
+    # random points (identities among them) and scalars (a zero, a q - 1);
+    # the per-point references are the prefix sums of one pass of products
+    pts_c = pt_tab[torch.from_numpy(rng.integers(0, len(host_pts), size=(B, 36))).to(dev)].contiguous()
+    sc_c = rand_canon(FR_SPEC, (B, 36))
+    sc_c[0, 1] = 0
+    sc_c[1, 2] = torch.from_numpy(FR_SPEC.encode(Q - 1)).to(dev)
+    products = tc.mul(pts_c, sc_c)
+    acc, refs = products[:, 0], {}
+    for j in range(1, 36):
+        acc = tc.add(acc, products[:, j])
+        if j + 1 in (3, 17, 19, 32, 36):
+            refs[j + 1] = tc.to_affine(acc)
+    for k in (3, 17, 19, 32, 36):
+        pts_k, sc_k = pts_c[:, :k].contiguous(), sc_c[:, :k].contiguous()
+        plain_ms = msm_check(pts_k, sc_k, ref=refs[k])[2]
+        times = _times(lambda: cuda_curve.msm(pts_k, sc_k), "msm_kernel", 10)
+        bound = msm_bound(pts_k, sc_k)
+        print(f"[kernel] msm at ({B}, {k}): exact (plain {plain_ms:.3f} ms), {times[0]:.4f} ms device, "
+              f"{times[1]:.4f} ms per call, bound {bound[0]:.5f} ms by {bound[1]} (ratio {times[0] / bound[0]:.1f})")
+    # the fused decompress kernel at the proof points of simple_mul GWC19
+    # (11), lookup_table (15) and atms_with_lookups (18), crafted as above
+    for name in ("simple_mul_gwc19", "lookup_table", "atms_with_lookups"):
+        raw_c, hints_c, dec_c, mem_c = crafted_rows(set_verifier(name), sets[name][1], B)
+        k = raw_c.shape[1]
+        w_c = tc.subgroup_weights(k, 1, torch.Generator().manual_seed(SEED + k))
+        got_c, _want_c, plain_ms = decompress_check(raw_c, hints_c, dec_c, mem_c, w_c)
+        raw_ct, hints_ct = torch.from_numpy(raw_c).to(dev), torch.from_numpy(hints_c).to(dev)
+        times = _times(lambda: cuda_curve.decompress_hinted(raw_ct, hints_ct, w_c),
+                       "decompress_subgroup_kernel", 20)
+        bound = decompress_bound(raw_c, hints_c, got_c, w_c)
+        print(f"[kernel] decompress (fused, 1 round) at ({B}, {k}) ({name}): exact (plain {plain_ms:.3f} ms), "
+              f"{times[0]:.4f} ms device, {times[1]:.4f} ms per call, bound {bound[0]:.5f} ms by {bound[1]} "
+              f"(ratio {times[0] / bound[0]:.1f})")
+
+    stamp("the circuits' kernel shapes")
 
     # ---- 5. the paths ------------------------------------------------------
     counters = {
@@ -898,8 +1047,8 @@ def main() -> int:
     if default.msm_term_counts != [16, 8]:  # the multi-open MSM, then the RLC aggregation
         _fail(f"path d ran MSMs of K = {default.msm_term_counts}, expected [16, 8]")
     # (e) an honest batch: no re-check; (e') one corrupted hint
-    honest_t = torch.from_numpy(np.stack([proofs["proof"]] * B)).to(dev)
-    honest_hints = torch.from_numpy(verifier.compute_y_hints(np.stack([proofs["proof"]] * B))).to(dev)
+    honest_t = torch.from_numpy(np.stack([proof_h] * B)).to(dev)
+    honest_hints = torch.from_numpy(verifier.compute_y_hints(np.stack([proof_h] * B))).to(dev)
     launches_e = run_path("e verify_rlc group 8, honest", lambda: default.verify_rlc(
         honest_t, pis_t, honest_hints, group=8, generator=gen), np.ones(B, bool), rlc_needs)
     if launches_e["pairing"] != 1:
@@ -917,40 +1066,184 @@ def main() -> int:
     run_path("e' verify_rlc group 8, one corrupted hint", lambda: default.verify_rlc(
         honest_t, pis_t, bad_hint, group=8, generator=gen), want_e2, rlc_needs)
 
-    # ---- 6. serving ----------------------------------------------------------
+    stamp("paths (a)-(e')")
     from plutus_halo2_tpu_torch.serving import ProofBundle, VerificationService
 
-    good_b, bad_b = bytes(proofs["proof"]), bytes(proofs["proof_invalid"])
-    flip_b = bytearray(good_b)
-    flip_b[100] ^= 0x40
-    n_sub = B + max(1, B // 13)  # one full batch and one padded one
-    svc = VerificationService(plan, batch_size=B, linger_s=1.0, rlc_group=8)
-    try:
+    # ---- 5b. the circuits: the GWC19 flavor, the lookup and ATMS circuits ------
+    # Each batch: the honest proof, its committed invalid twin every 8th row,
+    # a corrupted proof scalar (circuit_batch), and a corrupted y-hint on an
+    # honest row, which only the hinted paths reject.
+    def circuit_inputs(name):
+        plan_s, proof_s, bad_s, pis_s = sets[name]
+        v_s = set_verifier(name)
+        scalar_off = list(v_s.layout.scalar_offsets.values())[0]
+        batch_s, want_s = circuit_batch(proof_s, bad_s, scalar_off, B)
         t0 = time.perf_counter()
-        subs, want_s = [], []
-        for i in range(n_sub):
-            proof_b = bad_b if i % 13 == 5 else bytes(flip_b) if i % 29 == 7 else good_b
-            bundle = ProofBundle(proof_b, tuple(pis))
-            subs.append((bundle, svc.submit(bundle)))
-            want_s.append(proof_b == good_b)
-        gated = ProofBundle(good_b, tuple(pis))
-        subs.append((gated, svc.submit(gated, expected_tag=ProofBundle(bad_b, tuple(pis)).tag)))
-        want_s.append(False)
-        got_s = []
-        for bundle, fut in subs:
-            tag, ok = fut.result(timeout=600)  # an exception fails the run
-            if tag != bundle.tag:
-                _fail("serving: a future resolved with another bundle's tag")
-            got_s.append(ok)
-        serve_s = time.perf_counter() - t0
-    finally:
-        svc.close()
-    if got_s != want_s:
-        _fail(f"serving: verdicts differ at {[i for i, (g, w) in enumerate(zip(got_s, want_s)) if g != w][:10]}")
-    if svc.dispatches != 2:
-        _fail(f"serving: {svc.dispatches} dispatches, expected one full and one padded batch")
-    print(f"[serve] {n_sub + 1} submissions: verdicts exact ({sum(want_s)} accept), "
-          f"{svc.dispatches} dispatches, {serve_s:.2f} s")
+        hints_s = corrupt_hint(v_s.compute_y_hints(batch_s))
+        hint_s = time.perf_counter() - t0
+        hinted_s = want_s.copy()
+        hinted_s[CIRCUIT_HINT_ROW] = False
+        print(f"[circuit] {name}: {plan_s.flavor}, k = {plan_s.vk.k}, proof {v_s.layout.proof_len} bytes, "
+              f"{len(v_s.layout.point_offsets)} points, squeezes {[l for _n, l in v_s.layout.squeezes]}; "
+              f"compute_y_hints {hint_s * 1e3:.1f} ms at B={B}")
+        return (v_s, torch.from_numpy(batch_s).to(dev),
+                torch.from_numpy(v_s.encode_public_inputs([pis_s] * B)).to(dev),
+                torch.from_numpy(hints_s).to(dev), want_s, hinted_s)
+
+    def check_counts(label, v_s, want_k):
+        if v_s.msm_term_counts != want_k:
+            _fail(f"path {label} ran MSMs of K = {v_s.msm_term_counts}, expected {want_k}")
+
+    # the new paths' own kernel inputs: while `keeping` is open, the
+    # verifier's module sees a proxy of each ops module named, whose wrapper
+    # keeps each call's arguments and output and calls the real one (so the
+    # launch counts stay on the wrappers); `hold_plain` then holds every
+    # kept output against the plain version on the same arguments
+    from plutus_halo2_tpu_torch.models import verifier_torch
+
+    sites = {"transcript": ("cuda_blake", "transcript_hashes", cuda_blake.transcript_hashes_plain),
+             "pow_fp": ("cuda_field", "fp_pow", lambda x, e: cuda_field.pow_plain(x, FP_SPEC, e)),
+             "subgroup": ("cuda_curve", "aggregate_subgroup_check", cuda_curve.aggregate_subgroup_check_plain)}
+
+    class Proxy:
+        def __init__(self, real):
+            self.real = real
+
+        def __getattr__(self, attr):
+            return getattr(self.real, attr)
+
+    @contextlib.contextmanager
+    def keeping(*names):
+        kept, reals = [], {}
+        for n in names:
+            mod_name, attr, _plain_fn = sites[n]
+            if mod_name not in reals:
+                reals[mod_name] = getattr(verifier_torch, mod_name)
+                setattr(verifier_torch, mod_name, Proxy(reals[mod_name]))
+
+            def keep(*args, _orig=getattr(reals[mod_name], attr), _n=n):
+                out = _orig(*args)
+                kept.append((_n, args, out))
+                return out
+            setattr(getattr(verifier_torch, mod_name), attr, keep)
+        try:
+            yield kept
+        finally:
+            for mod_name, real in reals.items():
+                setattr(verifier_torch, mod_name, real)
+        missing = set(names) - {n for n, _a, _o in kept}
+        if missing:
+            _fail(f"kernels {sorted(missing)} kept no call")
+
+    def hold_plain(label, kept):
+        for n, args, out in kept:
+            want, plain_ms = _plain(lambda: sites[n][2](*args))
+            torch.cuda.synchronize()
+            pairs = zip(out, want) if isinstance(out, tuple) else [(out, want)]
+            if not all(torch.equal(x, y) for x, y in pairs):
+                _fail(f"path {label}: {n} kernel differs from its plain version on the path's inputs "
+                      f"{tuple(args[0].shape)}")
+            print(f"[path] {label}: {n} kernel on the path's {tuple(args[0].shape)} input exact against its "
+                  f"plain version (plain {plain_ms:.1f} ms)")
+
+    def timed_path(label, v_s, fn):
+        v_s.timings = {}
+        wall_p = timed(fn)
+        print(f"[path] {label}: {B / wall_p:.1f} proofs/s (median of 3 calls: {wall_p * 1e3:.1f} ms per batch)")
+        stage_table(label, v_s, wall_p)
+        v_s.timings = None
+
+    gv, g_proof, g_pis, g_hints, g_want, g_hinted = circuit_inputs("simple_mul_gwc19")
+    # (f) GWC19, the default mode
+    with keeping("transcript") as kept:
+        run_path("f simple_mul GWC19 default (hints, fused aggregate subgroup)",
+                 lambda: gv.verify(g_proof, g_pis, g_hints, gen), g_hinted, base + ("decompress",))
+    hold_plain("f", kept)
+    check_counts("f", gv, [3, 17])
+    timed_path("f", gv, lambda: gv.verify(g_proof, g_pis, g_hints, gen))
+    # (g) GWC19, the hintless aggregate mode
+    with keeping("pow_fp", "subgroup") as kept:
+        run_path("g simple_mul GWC19 hintless aggregate", lambda: gv.verify(g_proof, g_pis, None, gen), g_want,
+                 base + ("pow_fp", "subgroup"))
+    hold_plain("g", kept)
+    check_counts("g", gv, [3, 17])
+    timed_path("g", gv, lambda: gv.verify(g_proof, g_pis, None, gen))
+    # (h) GWC19 verify_rlc on the mixed batch (failing groups re-checked) and
+    # on an honest batch (no re-check)
+    launches_h = run_path("h simple_mul GWC19 verify_rlc group 8, mixed", lambda: gv.verify_rlc(
+        g_proof, g_pis, g_hints, group=8, generator=gen), g_hinted, rlc_needs)
+    check_counts("h", gv, [3, 17, 8])
+    if launches_h["pairing"] < 2:
+        _fail("path h did not re-check its failing groups")
+    g_honest = torch.from_numpy(np.stack([sets["simple_mul_gwc19"][1]] * B)).to(dev)
+    g_honest_hints = torch.from_numpy(gv.compute_y_hints(g_honest.cpu().numpy())).to(dev)
+    launches_h2 = run_path("h' simple_mul GWC19 verify_rlc group 8, honest", lambda: gv.verify_rlc(
+        g_honest, g_pis, g_honest_hints, group=8, generator=gen), np.ones(B, bool), rlc_needs)
+    check_counts("h'", gv, [3, 17, 8])
+    if launches_h2["pairing"] != 1:
+        _fail("path h' re-checked rows of an honest batch")
+    # (i)-(l) the lookup and ATMS circuits in the default mode
+    for label, name, want_k, timed_p in (("i", "lookup_table", [19], True), ("j", "atms", [32], True),
+                                         ("k", "atms_with_lookups", [36], True),
+                                         ("l", "atms_228_408", [32], False)):
+        cv, c_proof, c_pis, c_hints, _c_want, c_hinted = circuit_inputs(name)
+        with keeping("transcript") as kept:
+            run_path(f"{label} {name} default (hints, fused aggregate subgroup)",
+                     lambda: cv.verify(c_proof, c_pis, c_hints, gen), c_hinted, base + ("decompress",))
+        hold_plain(label, kept)
+        check_counts(label, cv, want_k)
+        if timed_p:
+            timed_path(label, cv, lambda: cv.verify(c_proof, c_pis, c_hints, gen))
+
+    def serve(label, plan_s, good, bad, inputs, batch_size, n, gated=False):
+        """n submissions (the invalid twin at i % 13 == 5, a bit-flipped
+        proof at i % 29 == 7, else honest; with `gated`, one more whose tag
+        differs from the one its caller expects) through one
+        VerificationService: every future must resolve to its verdict, in
+        one full and one padded batch."""
+        flip = bytearray(good)
+        flip[100] ^= 0x40
+        svc = VerificationService(plan_s, batch_size=batch_size, linger_s=1.0, rlc_group=8)
+        try:
+            t0 = time.perf_counter()
+            subs, want = [], []
+            for i in range(n):
+                proof_b = bad if i % 13 == 5 else bytes(flip) if i % 29 == 7 else good
+                bundle = ProofBundle(proof_b, inputs)
+                subs.append((bundle, svc.submit(bundle)))
+                want.append(proof_b == good)
+            if gated:
+                bundle = ProofBundle(good, inputs)
+                subs.append((bundle, svc.submit(bundle, expected_tag=ProofBundle(bad, inputs).tag)))
+                want.append(False)
+            got = []
+            for bundle, fut in subs:
+                tag, ok = fut.result(timeout=600)  # an exception fails the run
+                if tag != bundle.tag:
+                    _fail(f"{label} serving: a future resolved with another bundle's tag")
+                got.append(ok)
+            secs = time.perf_counter() - t0
+        finally:
+            svc.close()
+        if got != want:
+            _fail(f"{label} serving: verdicts differ at "
+                  f"{[i for i, (g, w) in enumerate(zip(got, want)) if g != w][:10]}")
+        if svc.dispatches != 2:
+            _fail(f"{label} serving: {svc.dispatches} dispatches, expected one full and one padded batch")
+        print(f"[serve] {label}: {len(subs)} submissions, verdicts exact ({sum(want)} accept), "
+              f"{svc.dispatches} dispatches, {secs:.2f} s")
+
+    # GWC19 serving: a few hundred submissions, one full batch of B / 4 and
+    # one padded
+    g_plan, g_good, g_bad, g_inputs = sets["simple_mul_gwc19"]
+    serve("simple_mul GWC19", g_plan, bytes(g_good), bytes(g_bad), tuple(g_inputs), B // 4, B // 4 + B // 24)
+
+    stamp("circuits phase")
+
+    # ---- 6. serving ----------------------------------------------------------
+    serve("simple_mul", plan, bytes(proof_h), bytes(proof_bad), tuple(pis), B, B + B // 13, gated=True)
+
+    stamp("serving")
 
     # ---- 7. the probe path ------------------------------------------------------
     from plutus_halo2_tpu_torch.tools import mma_probe, perf_probe
@@ -963,6 +1256,8 @@ def main() -> int:
     ), counters)
     print(f"[probe] tensor-core probe at B={B} and stage probe at B={PROBE_BATCH} ({' '.join(probe_stages)}): "
           f"every check exact, launches {launches}, {first_s:.1f} s")
+
+    stamp("probe path")
 
     # ---- 8. trace: the card's busy share of one default-mode batch ----------------
     wall_u = timed(lambda: default.verify(proof_t, pis_t, hints_t, gen))
@@ -982,6 +1277,7 @@ def main() -> int:
     for name, count, us in by_name[:8]:
         print(f"[trace]   {us / 1e3:9.3f} ms in {count:5d} x {name[:100]}")
 
+    stamp("trace")
     print(f"[timer] device_ms's windows open with {WINDOW['fillers']} filler kernels (raised {WINDOW['raised']} times)")
     ecc_after, xid = _health()
     print(f"[health] ECC after the run: {ecc_after} (before: {ecc_before})")

@@ -8,8 +8,13 @@ Pipeline per batch (each proof a row):
   runs the per-row aggregate subgroup test; without, the Fp pow kernel as
   the sqrt ladder, then the subgroup kernel) -> scalar work over Fr (one
   pooled batch inversion rooted in the Fr pow kernel, Lagrange basis,
-  vanishing fold) -> the Halo2-book multi-open MSM (MSM kernel) -> the
-  pairing check (pairing kernel).
+  vanishing fold) -> the multi-open MSM (MSM kernel) -> the pairing check
+  (pairing kernel).
+
+Both KZG multi-open flavors of the reference are ported: the Halo2-book
+accumulation (one MSM, ``_multiopen_halo2``) and GWC19 (``_multiopen_gwc``:
+the left and right pairing sides as two MSM calls, each de-duplicated on
+its own, as ``JaxVerifier``'s ``run_msm_pair`` runs them).
 
 ``verify_rlc`` shares that core and replaces the per-row pairing by one
 pairing per group of rows on random-linear-combination aggregates (the MSM
@@ -17,8 +22,7 @@ kernel at K = group), re-checking the rows of failing groups exactly.
 
 On a CUDA device the stages named above run as the hand-written kernels of
 ``csrc/``; the O(1)-per-proof glue between them is batched torch code
-(``ops/limb.py``). On the CPU every stage runs its plain version. This
-port covers the Halo2-book KZG flavor.
+(``ops/limb.py``). On the CPU every stage runs its plain version.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ..ops.limb import FP_SPEC, FR_SPEC, fr
 from ..ops.pairing import prepare_g2
 from ..refimpl.curve import G1_GEN, G2_GEN, g1_neg
 from ..refimpl.field import FR_DELTA, P, Q
+from ..refimpl.multiopen import group_queries_by_rotation
 from .layout import build_layout
 from .plan import FLAVOR_HALO2, CircuitPlan, eval_expr, rot_offset
 
@@ -151,6 +156,20 @@ def _precompute_delta_pows(expr):
     return tuple(_precompute_delta_pows(e) if isinstance(e, tuple) else e for e in expr)
 
 
+def dedup_terms(terms):
+    """Merge MSM terms on the same point by summing their scalars, in
+    insertion order (the reference's flatten_msm / optimize_msm,
+    code_emitters_aiken.rs:913-1016): [(point_key, coeff)] -> the same."""
+    order, acc = [], {}
+    for key, c in terms:
+        if key in acc:
+            acc[key] = fr.add(acc[key], c)
+        else:
+            acc[key] = c
+            order.append(key)
+    return [(k, acc[k]) for k in order]
+
+
 def host_state(plan: CircuitPlan) -> dict:
     """The verifier's host constants computed from the plan's VK, as numpy
     int64 limb arrays (the same values JaxVerifier.__init__ computes)."""
@@ -215,9 +234,6 @@ class TorchVerifier:
             raise ValueError(f"unknown subgroup_check {subgroup_check!r}")
         if int(subgroup_rounds) < 1:
             raise ValueError(f"subgroup_rounds must be >= 1, got {subgroup_rounds}")
-        if plan.flavor != FLAVOR_HALO2:
-            raise NotImplementedError(
-                "only the halo2-book KZG flavor is ported (ROADMAP.md section A: GWC flavor)")
         self.subgroup_check = subgroup_check
         self.subgroup_rounds = int(subgroup_rounds)
         self.plan = plan
@@ -593,28 +609,27 @@ class TorchVerifier:
                 return self.perm_coms[int(key[6:])].expand(B, 3, FP_SPEC.L)
             return points[key]
 
-        def run_msm(terms):
-            # merge duplicate points by summing their scalars, insertion-
-            # ordered (the reference's flatten_msm / optimize_msm,
-            # code_emitters_aiken.rs:913-1016)
-            order, acc = [], {}
-            for key, c in terms:
-                if key in acc:
-                    acc[key] = fr.add(acc[key], c)
-                else:
-                    acc[key] = c
-                    order.append(key)
-            self.msm_term_counts.append(len(order))
-            pts_arr = torch.stack([resolve_point(k) for k in order], -3).contiguous()
-            coeffs = fr.from_mont(torch.stack([acc[k] for k in order], -2)).contiguous()
-            return self._stage("msm", lambda: cuda_curve.msm(pts_arr, coeffs))
+        def run_msm(terms, stage="msm"):
+            """One MSM kernel call over the de-duplicated terms."""
+            terms = dedup_terms(terms)
+            self.msm_term_counts.append(len(terms))
+            pts_arr = torch.stack([resolve_point(k) for k, _c in terms], -3).contiguous()
+            coeffs = fr.from_mont(torch.stack([c for _k, c in terms], -2)).contiguous()
+            return self._stage(stage, lambda: cuda_curve.msm(pts_arr, coeffs))
 
         self.msm_term_counts = []
-        el, er_msm = self._multiopen_halo2(plan, ch, scalars, eval_value, com_terms,
-                                           run_msm, points, set_points, mo_invs)
+        if plan.flavor == FLAVOR_HALO2:
+            el, er_msm = self._multiopen_halo2(plan, ch, scalars, eval_value, com_terms,
+                                               run_msm, points, set_points, mo_invs)
+        else:
+            el, er_msm = self._multiopen_gwc(plan, ch, eval_value, com_terms, run_msm)
         er = tc.neg(er_msm)
         return el.contiguous(), er.contiguous(), all_valid
 
+    def _rot_point(self, x, rot):
+        """The evaluation point of a rotation: x times omega^offset."""
+        off = rot_offset(rot, self.plan.vk.blinding_factors)
+        return x if off == 0 else fr.mul(x, self.rot_mult[off])
 
     def _scalar_side(self, B, ch, scalars, pis):
         """The Fr side: one pooled batch inversion, the Lagrange basis and
@@ -623,10 +638,6 @@ class TorchVerifier:
         x = ch["x"]
         xn = fr.pow(x, vk.n)
         one = self.one_fr.expand(B, FR_SPEC.L)
-
-        def rot_point(rot):
-            off = rot_offset(rot, vk.blinding_factors)
-            return x if off == 0 else fr.mul(x, self.rot_mult[off])
 
         # Every Fr inverse the verifier needs (Lagrange-basis denominators,
         # 1/(x^n - 1), multi-open interpolation denominators) depends only on
@@ -646,23 +657,26 @@ class TorchVerifier:
         sl_van = _pool(fr.sub(x[:, None, :], self.van_rotations[None]))
         sl_xn1 = _pool(fr.sub(xn, one)[:, None, :])
 
-        x3_ch = ch["x3"]
-        set_points = [[rot_point(r) for r in rots] for rots in plan.point_sets]
-        mo_slices = []
-        for pts_s in set_points:
-            dens = []
-            for j in range(len(pts_s)):
-                den = None
-                for m in range(len(pts_s)):
-                    if m != j:
-                        dm = fr.sub(pts_s[j], pts_s[m])
-                        den = dm if den is None else fr.mul(den, dm)
-                dens.append(den if den is not None else fr.one((B,), dev))
-            z_den = None
-            for p in pts_s:
-                t = fr.sub(x3_ch, p)
-                z_den = t if z_den is None else fr.mul(z_den, t)
-            mo_slices.append(_pool(torch.stack(dens + [z_den], -2)))
+        # the Halo2-book multi-open's interpolation denominators (GWC19 has
+        # no x3 and needs no inverse of its own)
+        set_points, mo_slices = None, []
+        if plan.flavor == FLAVOR_HALO2:
+            x3_ch = ch["x3"]
+            set_points = [[self._rot_point(x, r) for r in rots] for rots in plan.point_sets]
+            for pts_s in set_points:
+                dens = []
+                for j in range(len(pts_s)):
+                    den = None
+                    for m in range(len(pts_s)):
+                        if m != j:
+                            dm = fr.sub(pts_s[j], pts_s[m])
+                            den = dm if den is None else fr.mul(den, dm)
+                    dens.append(den if den is not None else fr.one((B,), dev))
+                z_den = None
+                for p in pts_s:
+                    t = fr.sub(x3_ch, p)
+                    z_den = t if z_den is None else fr.mul(z_den, t)
+                mo_slices.append(_pool(torch.stack(dens + [z_den], -2)))
 
         def root_inv(t):
             return cuda_field.fr_pow(t[:, None, :].contiguous(), Q - 2)[:, 0, :]
@@ -790,3 +804,30 @@ class TorchVerifier:
         msm_terms.append(("#neg_g1", v))
         msm_terms.append(("pi", x3))
         return points["pi"], run_msm(msm_terms)
+
+    def _multiopen_gwc(self, plan, ch, eval_value, com_terms, run_msm):
+        """GWC19 accumulation (GwcMultiOpenMSM.hs:96-135), as JaxVerifier's
+        _multiopen_gwc: the queries grouped by rotation in first-occurrence
+        order; left = sum_i u^i w_i, right = sum_i u^i z_i w_i
+        + sum_i u^i sum_j v^j c_ij - (sum_i u^i sum_j v^j e_ij) G1. The two
+        sides run as two MSM kernel calls, each de-duplicated on its own."""
+        v_ch, u_ch, x = ch["v"], ch["u"], ch["x"]
+        B = v_ch.shape[0]
+        dev = v_ch.device
+        triples = [(q.rot, q.commitment, q.evaluation) for q in plan.all_queries_ordered()]
+        left_terms, right_terms = [], []
+        u_pow = fr.one((B,), dev)
+        final_eval = fr.zeros((B,), dev)
+        for g, (rot, members) in enumerate(group_queries_by_rotation(triples)):
+            left_terms.append((f"w_{g}", u_pow))
+            right_terms.append((f"w_{g}", fr.mul(u_pow, self._rot_point(x, rot))))
+            v_pow = fr.one((B,), dev)
+            inner = fr.zeros((B,), dev)
+            for com, ev in members:
+                right_terms.extend(com_terms(com, fr.mul(v_pow, u_pow)))
+                inner = fr.add(inner, fr.mul(v_pow, eval_value(ev)))
+                v_pow = fr.mul(v_pow, v_ch)
+            final_eval = fr.add(final_eval, fr.mul(u_pow, inner))
+            u_pow = fr.mul(u_pow, u_ch)
+        right_terms.append(("#neg_g1", final_eval))
+        return run_msm(left_terms, "msm_left"), run_msm(right_terms, "msm_right")

@@ -421,7 +421,8 @@ def _run(work, *args):
     assert out.returncode == 0, out.stderr[-2000:]
 
 
-@pytest.mark.parametrize("B,K,wbits,lanes", [(3, 6, 5, 16), (2, 9, 4, 8), (3, 5, 5, 32), (1, 1, 4, 4)])
+@pytest.mark.parametrize("B,K,wbits,lanes", [(3, 6, 5, 16), (2, 9, 4, 8), (3, 5, 5, 32), (1, 1, 4, 4),
+                                             (1, 36, 5, 32)])
 def test_msm_kernel_on_cpu_threads(sim, B, K, wbits, lanes):
     rng = np.random.default_rng(B * K + wbits)
     host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=min(K, 5))] + [None]

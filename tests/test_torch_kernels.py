@@ -220,12 +220,15 @@ def _msm_rows(B, K, seed, dev):
     return pts, sc
 
 
-@pytest.mark.parametrize("B,K", [(1, 1), (17, 8), (129, 17), (1024, 16), (256, 8), (17, 128)])
+@pytest.mark.parametrize("B,K", [(1, 1), (17, 8), (129, 17), (1024, 16), (256, 8), (17, 128),
+                                 (1024, 3), (1024, 19), (1024, 32), (129, 36)])
 def test_msm_kernel(dev, B, K):
     """Both window widths: the same limbs as the plain version of the
     kernel's decomposition (msm_windowed), and in affine coordinates the
     plain per-point MSM's; B ragged against the rows per block, K in whole
-    and ragged chunks of points (128: 32 chunks)."""
+    and ragged chunks of points (128: 32 chunks); the multi-open shapes of
+    the GWC19 flavor and the lookup and ATMS circuits (3, 17, 19, 32, 36:
+    above 32, more than one point a lane)."""
     pts, sc = _msm_rows(B, K, B + K, dev)
     ref = tc.to_affine(cuda_curve.msm_plain(pts, sc))
     for wbits in (4, 5):
@@ -463,7 +466,8 @@ def _grid(B, K, seed, kinds):
     return raw, hints, row_kinds
 
 
-@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33), (17, 128), (1024, 10)])
+@pytest.mark.parametrize("B,K", [(1, 1), (37, 4), (130, 10), (37, 33), (17, 128), (1024, 10),
+                                 (1024, 11), (37, 15), (1024, 18)])
 @pytest.mark.parametrize("rounds", [None, 1, 2, 3, 4])
 def test_decompress_kernel(dev, B, K, rounds):
     raw, hints, kinds = _grid(B, K, 100 * B + K, ["go", "goe", "gox", "goex"])
