@@ -9,7 +9,8 @@ subgroup test fused into hinted decompression), the modes beside it,
 ``verify_rlc`` and the serving loop, at the headline batch B = 1024 — the
 GWC19 flavor and the lookup and ATMS circuits, and the probe path (the
 tensor-core probe and the stage probe) through their hand-written CUDA
-kernels, in phases:
+kernels, and the modules around them (the spec verifier and its traces, the
+exporters, the submit tool, multi-device verification), in phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
@@ -84,6 +85,30 @@ kernels, in phases:
   6. serving: a VerificationService (batch 1024, RLC group 8) answers 1100
      submissions, one full and one padded batch, and every future must
      resolve to its expected verdict;
+  6b. spec: the port's spec verifier (``refimpl/verifier.py``) on the honest
+     proof and the invalid twin of simple_mul (halo2-book and GWC19) and
+     lookup_table: its verdicts and the card's ``verify()`` on the same rows
+     must be [True, False], and ``diff_traces`` of its el / er against
+     ``core()``'s el / -er (``tracing.device_traces``) empty on the honest
+     row; one ``format_traces`` block is printed;
+  6c. exporters: every committed artifact set round-trips byte for byte
+     (``export_proof``, ``serialize_proof``, ``export_public_inputs``,
+     ``vk_to_json(vk_from_json(t))``);
+  6d. submit: ``tools.submit.main`` on the card, 12 submissions, every third
+     tampered, each verdict checked (counted as a path);
+  6e. mesh: on a virtual mesh of four entries of the card (every card where
+     there are several), the legs of ``__graft_entry__.dryrun_multichip``,
+     each counted as a path at B = 1024 with its verdicts, MSM launches and
+     K checked: (1) ``data_parallel_verify`` of path (b)'s rows (1h: with
+     path (a)'s y-hints, one corrupted), (2)
+     ``verify_2d`` with dp 2 x mp 2 (the multi-open MSM split over mp), (3)
+     lookup_table through the DP mesh; each leg's wall beside path (b)'s,
+     timed in this phase; ``shard_map_msm`` over mp 2 and 4 and
+     ``sharded_msm`` at K = 16, 17, 32, 36, equal in affine coordinates to
+     the unsharded kernel, and the MSM kernel's device time at the mp-2
+     slice beside the whole K; then ``init_distributed`` at world size 1
+     (NCCL): the DP leg over the process group and a cross-rank
+     ``sharded_msm`` (``dist.all_gather``) at K = 16 and 36;
   7. the probe path, launch counts set to 0 before it and read after it:
      ``tools.mma_probe`` at B = 1024 and ``tools.perf_probe`` at B = 256 on
      the stages mul sqrtp msmp msmp5 subk pairingp verifyh, each checking
@@ -428,18 +453,14 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from plutus_halo2_tpu_torch.models.atms import AtmsCircuit, AtmsLookupCircuit
-    from plutus_halo2_tpu_torch.models.circuits import LookupRangeCircuit, SimpleMulCircuit
-    from plutus_halo2_tpu_torch.models.plan import FLAVOR_GWC, FLAVOR_HALO2
     from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
     from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_pairing
     from plutus_halo2_tpu_torch.ops import curve as tc
     from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, limbs_to_int, window_digits
     from plutus_halo2_tpu_torch.refimpl import curve as rc
     from plutus_halo2_tpu_torch.refimpl.field import BLS_X, Q
-    from plutus_halo2_tpu_torch.refimpl.keygen import plan_from_vk
     from plutus_halo2_tpu_torch.utils.profiling import WINDOW, device_busy_us, device_time_by_name, torch_trace
-    from plutus_halo2_tpu_torch.utils.serialization import parse_public_inputs, vk_from_json
+    from plutus_halo2_tpu_torch.utils import artifacts, serialization
 
     dev = torch.device("cuda")
     t_run = time.perf_counter()
@@ -523,34 +544,19 @@ def main() -> int:
     stamp("field phase")
 
     # ---- the slice's inputs --------------------------------------------
-    def load_set(art_dir, name, circuit, flavor):
-        """(plan, honest proof, invalid twin, public inputs) of a committed set."""
-        def read(suffix):
-            with open(os.path.join(art_dir, f"{name}_{suffix}")) as f:
-                return f.read()
+    def load_set(name):
+        """(plan, honest proof, invalid twin, public inputs) of a committed
+        set (utils/artifacts.py), the proofs as uint8 arrays."""
+        plan_s, good, bad_s, pis_s = artifacts.load_set(name)
+        return plan_s, np.frombuffer(good, np.uint8), np.frombuffer(bad_s, np.uint8), pis_s
 
-        hexes = [np.frombuffer(bytes.fromhex(read(f"{n}.hex").strip()), np.uint8)
-                 for n in ("proof", "proof_invalid")]
-        return (plan_from_vk(circuit, vk_from_json(read("vk.json")), flavor=flavor), *hexes,
-                parse_public_inputs(read("public_input.hex")))
-
-    art = os.path.join(root, "examples", "artifacts")
-    plan, proof_h, proof_bad, pis = load_set(art, "simple_mul", SimpleMulCircuit(), FLAVOR_HALO2)
+    plan, proof_h, proof_bad, pis = load_set("simple_mul")
     verifier = TorchVerifier(plan, subgroup_check="off")  # device defaults to cuda
 
     # the circuits phase's sets: the GWC19 flavor of simple_mul (the port's
-    # own committed set), the lookup and ATMS circuits (the JAX package's);
-    # one ATMS construction serves every party count
-    atms_args = ([(0, 1)] * 2, [None] * 2, 0, 1)
-    sets = {
-        "simple_mul_gwc19": load_set(os.path.join(root, "plutus_halo2_tpu_torch", "artifacts"),
-                                     "simple_mul_gwc19", SimpleMulCircuit(), FLAVOR_GWC),
-        "lookup_table": load_set(art, "lookup_table", LookupRangeCircuit(values=(3, 9, 14), bits=4),
-                                 FLAVOR_HALO2),
-        "atms": load_set(art, "atms", AtmsCircuit(*atms_args), FLAVOR_HALO2),
-        "atms_with_lookups": load_set(art, "atms_with_lookups", AtmsLookupCircuit(*atms_args), FLAVOR_HALO2),
-        "atms_228_408": load_set(art, "atms_228_408", AtmsCircuit(*atms_args), FLAVOR_HALO2),
-    }
+    # own committed set), the lookup and ATMS circuits (the JAX package's)
+    sets = {n: load_set(n) for n in ("simple_mul_gwc19", "lookup_table", "atms", "atms_with_lookups",
+                                     "atms_228_408")}
     set_verifiers = {}
 
     def set_verifier(name):
@@ -894,7 +900,8 @@ def main() -> int:
     # are then timed and bounded. The MSM at the multi-open K of the GWC19
     # flavor (3, 17) and of the lookup and ATMS circuits (19, 32, 36), on
     # random points (identities among them) and scalars (a zero, a q - 1);
-    # the per-point references are the prefix sums of one pass of products
+    # the per-point references are the prefix sums of one pass of products,
+    # kept also at the mp-2 slices' K (9, 16, 18) that phase 6e times
     pts_c = pt_tab[torch.from_numpy(rng.integers(0, len(host_pts), size=(B, 36))).to(dev)].contiguous()
     sc_c = rand_canon(FR_SPEC, (B, 36))
     sc_c[0, 1] = 0
@@ -903,7 +910,7 @@ def main() -> int:
     acc, refs = products[:, 0], {}
     for j in range(1, 36):
         acc = tc.add(acc, products[:, j])
-        if j + 1 in (3, 17, 19, 32, 36):
+        if j + 1 in (3, 9, 16, 17, 18, 19, 32, 36):
             refs[j + 1] = tc.to_affine(acc)
     for k in (3, 17, 19, 32, 36):
         pts_k, sc_k = pts_c[:, :k].contiguous(), sc_c[:, :k].contiguous()
@@ -1244,6 +1251,160 @@ def main() -> int:
     serve("simple_mul", plan, bytes(proof_h), bytes(proof_bad), tuple(pis), B, B + B // 13, gated=True)
 
     stamp("serving")
+
+    # ---- 6b. the spec verifier and its traces --------------------------------
+    # the port's pure-Python spec (refimpl/verifier.py) on each set's honest
+    # proof and invalid twin: the committed verdicts, the card's verify() on
+    # the same rows, and the spec's el / er against core()'s el / -er
+    from plutus_halo2_tpu_torch.refimpl.verifier import verify as spec_verify
+    from plutus_halo2_tpu_torch.utils.tracing import device_traces, diff_traces, format_traces
+
+    spec_sets = {"simple_mul": (plan, proof_h, proof_bad, pis, default),
+                 **{n: (*sets[n], set_verifier(n)) for n in ("simple_mul_gwc19", "lookup_table")}}
+    for name, (plan_s, good, bad_s, pis_s, v_s) in spec_sets.items():
+        rows = np.stack([good, bad_s])
+        t0 = time.perf_counter()
+        spec = [spec_verify(plan_s, r.tobytes(), pis_s, collect_traces=True) for r in rows]
+        spec_s = (time.perf_counter() - t0) / len(rows)
+        rows_t = torch.from_numpy(rows).to(dev)
+        pis_2 = torch.from_numpy(v_s.encode_public_inputs([pis_s] * 2)).to(dev)
+        hints_2 = torch.from_numpy(v_s.compute_y_hints(rows)).to(dev)
+        on_card = v_s.verify(rows_t, pis_2, hints_2, gen).cpu().tolist()
+        if [ok for ok, _t in spec] != [True, False] or on_card != [True, False]:
+            _fail(f"spec {name}: the spec's verdicts {[ok for ok, _t in spec]} and the card's {on_card} on "
+                  f"[honest, invalid] are not [True, False]")
+        dev_tr = device_traces(v_s, rows_t, pis_2, hints_2, v_s.subgroup_weights(gen))
+        diffs = [diff_traces(t, d) for (_ok, t), d in zip(spec, dev_tr)]
+        if diffs[0] or "el" not in spec[0][1]:
+            _fail(f"spec {name}: the honest row's traces differ from core()'s at {diffs[0]}")
+        bad_note = (f"the spec's parse error: {spec[1][1]['parse_error']}" if "parse_error" in spec[1][1]
+                    else f"el / er {'differ at ' + str(diffs[1]) if diffs[1] else 'match core(): the pairing rejects it'}")
+        print(f"[spec] {name}: verdicts [True, False] from the spec ({spec_s:.2f} s a proof) and the card; "
+              f"el / er of the honest row equal core()'s; the invalid row: {bad_note}")
+    print("[spec] simple_mul's honest traces (format_traces):")
+    for line in format_traces(spec_verify(plan, proof_h.tobytes(), pis, collect_traces=True)[1]).splitlines():
+        print(f"[spec]   {line}")
+
+    # ---- 6c. the exporters: every committed set round-trips byte for byte -----
+    for name in artifacts.SETS:
+        files = artifacts.read_set(name)
+        proof_b = bytes.fromhex(files["proof.hex"].strip())
+        pis_s = serialization.parse_public_inputs(files["public_input.hex"])
+        out = {"proof.hex": serialization.export_proof(proof_b),
+               "proof_invalid.hex": serialization.export_proof(bytes.fromhex(files["proof_invalid.hex"])),
+               "public_input.hex": serialization.export_public_inputs(pis_s),
+               "vk.json": serialization.vk_to_json(serialization.vk_from_json(files["vk.json"]))}
+        if "proof.json" in files:
+            out["proof.json"] = serialization.serialize_proof(proof_b)
+        bad_files = [s for s, text in out.items() if text != files[s]]
+        if bad_files:
+            _fail(f"exporters: {name}'s {bad_files} differ from the committed files")
+        print(f"[export] {name}: {sorted(out)} byte for byte")
+
+    # ---- 6d. the submit tool, on the card ---------------------------------------
+    from plutus_halo2_tpu_torch.tools import submit
+
+    got_sub, launches, first_s = counted("submit", lambda: submit.main(["--copies", "12", "--batch", "8"]),
+                                         base + ("decompress",))
+    if [ok for _tag, ok in got_sub] != [i % 3 != 2 for i in range(12)]:
+        _fail(f"submit: verdicts {[ok for _tag, ok in got_sub]}, every third should be rejected")
+    print(f"[submit] 12 submissions, every third tampered: verdicts exact, launches {launches}, {first_s:.2f} s")
+
+    stamp("spec, exporters, submit")
+
+    # ---- 6e. the mesh: batch DP, dp x mp with the point-sharded MSM -----------
+    # a virtual mesh of four entries of the card (every card where there are
+    # several); the legs of __graft_entry__.dryrun_multichip, each counted
+    # and its verdicts held against the expected vector of path (b)'s rows
+    import tempfile
+
+    import torch.distributed as dist
+
+    from plutus_halo2_tpu_torch.parallel import mesh as pm
+
+    n_cards = torch.cuda.device_count()
+    mesh_devs = [torch.device("cuda", i) for i in range(n_cards)] if n_cards > 1 else [dev] * 4
+    flat = pm.make_mesh(mesh_devs)
+    grid = pm.make_mesh_2d(dp=len(mesh_devs) // 2, mp=2, devices=mesh_devs)
+    print(f"[mesh] {flat}; {grid}")
+    hintless = base + ("pow_fp", "subgroup")
+    wall_b2 = timed(lambda: default.verify(proof_t, pis_t, None, gen))
+    print(f"[mesh] path (b) in this phase: {wall_b2 * 1e3:.1f} ms per batch (median of 3)")
+    lv, l_proof, l_pis, _l_hints, l_want, _l_hinted = circuit_inputs("lookup_table")
+    # (label, verifier, expected verdicts, MSM launches, multi-open K, the leg)
+    legs = (("1 data_parallel_verify, simple_mul", default, expected, flat.size, [16],
+             lambda: pm.data_parallel_verify(default, flat, proof_t, pis_t, sub_rng=gen)),
+            ("1h data_parallel_verify with y-hints, simple_mul", default, hinted, flat.size, [16],
+             lambda: pm.data_parallel_verify(default, flat, proof_t, pis_t, sub_rng=gen, y_hints=hints_t)),
+            ("2 verify_2d dp x mp, simple_mul", default, expected, grid.size, [16],
+             lambda: pm.verify_2d(default, grid, proof_t, pis_t, sub_rng=gen)),
+            ("3 data_parallel_verify, lookup_table", lv, l_want, flat.size, [19],
+             lambda: pm.data_parallel_verify(lv, flat, l_proof, l_pis, sub_rng=gen)))
+    for label, v_l, want_l, n_msm, want_k, fn in legs:
+        launches = run_path(f"mesh {label}", fn, want_l, base + ("decompress",) if "hints" in label else hintless)
+        k_l = v_l.msm_term_counts
+        if (launches["msm"], k_l) != (n_msm, want_k):
+            _fail(f"mesh {label}: {launches['msm']} MSM launches at K = {k_l}, expected {n_msm} at {want_k}")
+        wall_l = timed(fn)
+        print(f"[mesh] leg {label}: {wall_l * 1e3:.1f} ms per batch (median of 3; path (b) {wall_b2 * 1e3:.1f} ms), "
+              f"multi-open K = {k_l}, {launches['msm']} MSM launches")
+    if default.msm is not cuda_curve.msm:
+        _fail("verify_2d left the MSM hook set")
+
+    # the point-sharded MSM at simple_mul's K = 16 and ATMS's 32 and 36 (and
+    # GWC19's 17), on the kernel phase's random rows: shard_map_msm over mp 2
+    # and 4 entries of the card and sharded_msm over the flat mesh, in affine
+    # coordinates against the unsharded kernel; the mp-2 slice held against
+    # the plain versions (msm_check: limb for limb, and the per-point prefix
+    # sums) and its device time beside the unsharded kernel's
+    for k, (pts_k, sc_k) in {16: (pts, sc), **{k: (pts_c[:, :k].contiguous(), sc_c[:, :k].contiguous())
+                                               for k in (17, 32, 36)}}.items():
+        whole = cuda_curve.msm(pts_k, sc_k)
+        whole_a = tc.to_affine(whole)
+        for mp in (2, 4):
+            got_a = tc.to_affine(pm.shard_map_msm(pts_k, sc_k, pm.make_mesh([dev] * mp, axis="mp")))
+            if not all(torch.equal(x, y) for x, y in zip(got_a, whole_a)):
+                _fail(f"shard_map_msm at ({B}, {k}) over mp {mp} differs from the unsharded kernel")
+        one = pm.sharded_msm(pm.make_mesh(mesh_devs, axis="shard"), pts_k[0], sc_k[0])
+        if not all(torch.equal(x, y) for x, y in zip(tc.to_affine(one[None]), tc.to_affine(whole[:1]))):
+            _fail(f"sharded_msm at K = {k} differs from the unsharded kernel")
+        k0 = -(-k // 2)
+        pts_h, sc_h = pts_k[:, :k0].contiguous(), sc_k[:, :k0].contiguous()
+        msm_check(pts_h, sc_h, ref=None if k == 16 else refs[k0])  # K = 16: pts' own per-point MSM
+        t_whole = _times(lambda: cuda_curve.msm(pts_k, sc_k), "msm_kernel", 10)
+        t_half = _times(lambda: cuda_curve.msm(pts_h, sc_h), "msm_kernel", 10)
+        mesh2 = pm.make_mesh([dev] * 2, axis="mp")
+        call2 = _call_ms(lambda: pm.shard_map_msm(pts_k, sc_k, mesh2), 5)
+        b_whole, b_half = msm_bound(pts_k, sc_k), msm_bound(pts_h, sc_h)
+        print(f"[mesh] msm K = {k}: shard_map_msm over mp 2 and 4 and sharded_msm (K over {flat.size}) equal the "
+              f"unsharded kernel in affine; device {t_whole[0]:.4f} ms at ({B}, {k}) (bound {b_whole[0]:.5f}), "
+              f"{t_half[0]:.4f} ms at the mp-2 slice ({B}, {k0}) (exact against the plain versions; bound "
+              f"{b_half[0]:.5f}); per call "
+              f"{t_whole[1]:.4f} ms unsharded, {call2:.4f} ms for shard_map_msm over mp 2 (two slices and the "
+              f"point-add tree)")
+
+    # init_distributed at world size 1 (NCCL): a mesh over the process group,
+    # the DP leg through its collectives, and a cross-rank sharded_msm (the
+    # partials through dist.all_gather)
+    with tempfile.TemporaryDirectory() as store:
+        dev_d = pm.init_distributed(f"file://{os.path.join(store, 'store')}", world_size=1, rank=0)
+        try:
+            dmesh = pm.make_mesh([dev_d] * 2)
+            print(f"[mesh] process group: backend {dist.get_backend()}, world size {dist.get_world_size()}, "
+                  f"{dmesh}")
+            run_path("mesh 1' data_parallel_verify over the process group", lambda: pm.data_parallel_verify(
+                default, dmesh, proof_t, pis_t, sub_rng=gen), expected, hintless)
+            for k, (pts_k, sc_k) in ((16, (pts, sc)), (36, (pts_c, sc_c))):
+                one = pm.sharded_msm(pm.make_mesh([dev_d] * 2, axis="shard"), pts_k[0], sc_k[0])
+                if not all(torch.equal(x, y) for x, y in zip(tc.to_affine(one[None]),
+                                                             tc.to_affine(cuda_curve.msm(pts_k[:1], sc_k[:1])))):
+                    _fail(f"the cross-rank sharded_msm at K = {k} differs from the unsharded kernel")
+            print("[mesh] cross-rank sharded_msm at K = 16 and 36 (dist.all_gather over NCCL) equals the "
+                  "unsharded kernel in affine")
+        finally:
+            dist.destroy_process_group()
+
+    stamp("mesh")
 
     # ---- 7. the probe path ------------------------------------------------------
     from plutus_halo2_tpu_torch.tools import mma_probe, perf_probe

@@ -273,6 +273,11 @@ class TorchVerifier:
             if lay.scalar_offsets else None
         self._pt_idx = t(np.stack([np.arange(48) + off for off in lay.point_offsets.values()]))
         self.msm_term_counts: list[int] = []  # K of each MSM of the last call
+        # the multi-open MSMs' function, (B, K, 3, L) points and (B, K, 17)
+        # scalars -> (B, 3, L): parallel.mesh.verify_2d sets it to the
+        # point-sharded MSM over a group's mp axis for the call and restores
+        # it; the RLC aggregation stays whole
+        self.msm = cuda_curve.msm
         self.timings: dict | None = None  # set to {} to record per-stage CUDA events
 
     @classmethod
@@ -325,7 +330,7 @@ class TorchVerifier:
         return cache[inv.reshape(-1)]
 
     def verify(self, proof_bytes, public_inputs, y_hints=None,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, sub_weights=None):
         """proof_bytes (B, PLEN) uint8, public_inputs (B, n_pi, 17) canonical
         Fr limbs (numpy or tensors) -> (B,) bool tensor on the device.
 
@@ -333,9 +338,12 @@ class TorchVerifier:
         (compute_y_hints): decompression checks y^2 == x^3 + 4 and the sign
         instead of running the sqrt ladder; a wrong hint can only reject.
         generator: randomness of the aggregate subgroup test's fresh weights
-        (the OS's randomness when omitted)."""
-        el, er, all_valid = self.core(proof_bytes, public_inputs, y_hints,
-                                      self.subgroup_weights(generator))
+        (the OS's randomness when omitted). sub_weights: those weights drawn
+        by the caller (subgroup_weights()), as parallel.mesh hands the same
+        weights to every shard of a batch."""
+        if sub_weights is None:
+            sub_weights = self.subgroup_weights(generator)
+        el, er, all_valid = self.core(proof_bytes, public_inputs, y_hints, sub_weights)
         ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el, er, self.pair))
         return ok & all_valid
 
@@ -610,12 +618,14 @@ class TorchVerifier:
             return points[key]
 
         def run_msm(terms, stage="msm"):
-            """One MSM kernel call over the de-duplicated terms."""
+            """One MSM over the de-duplicated terms (self.msm: one kernel
+            call, or one on each slice of the points; msm_term_counts holds
+            the unsharded K)."""
             terms = dedup_terms(terms)
             self.msm_term_counts.append(len(terms))
             pts_arr = torch.stack([resolve_point(k) for k, _c in terms], -3).contiguous()
             coeffs = fr.from_mont(torch.stack([c for _k, c in terms], -2)).contiguous()
-            return self._stage(stage, lambda: cuda_curve.msm(pts_arr, coeffs))
+            return self._stage(stage, lambda: self.msm(pts_arr, coeffs))
 
         self.msm_term_counts = []
         if plan.flavor == FLAVOR_HALO2:

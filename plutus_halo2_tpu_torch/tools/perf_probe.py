@@ -43,7 +43,6 @@ import hashlib
 import os
 import statistics
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -61,7 +60,6 @@ from ..utils.profiling import call_ms, card_line, device_busy_us, device_ms, tor
 STAGES = ("mul", "chain", "blake", "decompress", "sqrtp", "msm", "msmp", "msmp5", "verify", "verifyh",
           "core", "subk", "pairing", "pairingp")
 DEFAULT_STAGES = ("mul", "chain", "pairing", "msm", "blake", "decompress", "sqrtp", "verify")
-ART = Path(__file__).resolve().parents[2] / "examples" / "artifacts"
 SPEC = limb.FP_SPEC
 
 
@@ -193,15 +191,11 @@ class _Probe:
                 _check(torch.equal(x, wx) and torch.equal(y, wy) and not inf.any(), f"{label} wrong")
 
     def _verifier_inputs(self):
-        from ..models.circuits import SimpleMulCircuit
         from ..models.verifier_torch import TorchVerifier
-        from ..refimpl.keygen import plan_from_vk
-        from ..utils.serialization import parse_public_inputs, vk_from_json
+        from ..utils.artifacts import load_set
 
-        plan = plan_from_vk(SimpleMulCircuit(), vk_from_json((ART / "simple_mul_vk.json").read_text()))
-        good, bad = (np.frombuffer(bytes.fromhex((ART / f"simple_mul_{n}.hex").read_text().strip()), np.uint8)
-                     for n in ("proof", "proof_invalid"))
-        pis = parse_public_inputs((ART / "simple_mul_public_input.hex").read_text())
+        plan, good, bad, pis = load_set("simple_mul")
+        good, bad = np.frombuffer(good, np.uint8), np.frombuffer(bad, np.uint8)
         ver = TorchVerifier(plan, device=self.dev)
         batch = np.stack([good] * self.B).copy()
         want = np.ones(self.B, bool)

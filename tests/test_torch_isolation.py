@@ -33,6 +33,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "plutus_halo2_tpu" or m.startswith("plutus_halo2_tpu."))
 print(len(names), bad)
+print(" ".join(names))
 """
 
 
@@ -41,9 +42,14 @@ def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
+    counts, names = out.stdout.strip().splitlines()
+    n, bad = counts.split(" ", 1)
     assert int(n) >= 15  # every module of the package was imported
     assert bad == "[]"
+    for mod in ("refimpl.transcript", "refimpl.lagrange", "refimpl.multiopen", "refimpl.pairing",
+                "refimpl.verifier", "utils.tracing", "utils.serialization", "utils.artifacts",
+                "parallel.mesh", "tools.submit", "tools.multihost_smoke"):
+        assert f"plutus_halo2_tpu_torch.{mod}" in names.split(), mod
 
 
 @pytest.fixture(scope="module")

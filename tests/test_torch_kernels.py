@@ -5,8 +5,9 @@ for limb against the plain version of its decomposition and in affine
 coordinates against the per-point MSM; the aggregate subgroup verdicts on
 rows whose points all decode, against the plain version of the kernels'
 decomposition and the JAX package's algorithm; the pow kernel on 0, 1 and
-N - 1; every lane-group width; the tensor-core probe kernels bit for bit), and the verifier's
-modes and verify_rlc on the card against the CPU.
+N - 1; every lane-group width; the tensor-core probe kernels bit for bit), the point-sharded
+MSM (parallel/mesh.shard_map_msm) on a virtual mesh of the card against the unsharded kernel,
+and the verifier's modes and verify_rlc on the card against the CPU.
 
 These need a CUDA device and nvcc (sm_90a) and skip without them; run them
 on the GPU machine with ``python -m pytest tests/test_torch_kernels.py -m gpu
@@ -236,6 +237,24 @@ def test_msm_kernel(dev, B, K):
         assert torch.equal(got, tc.msm_windowed(pts, sc, wbits)), wbits
         for g, w in zip(tc.to_affine(got), ref):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K", [9, 17, 37])
+@pytest.mark.parametrize("mp", [2, 3, 4])
+def test_shard_map_msm_on_the_card(dev, K, mp):
+    """The point-sharded MSM (parallel/mesh.shard_map_msm) on a virtual
+    mesh of mp entries of the card: the kernel on each padded slice, the
+    partials summed by a point-add tree, equal in affine coordinates to the
+    unsharded kernel's sum (which test_msm_kernel holds against the plain
+    MSM)."""
+    from plutus_halo2_tpu_torch.parallel import mesh as pm
+
+    pts, sc = _msm_rows(129, K, 7 * K + mp, dev)
+    before = cuda_curve.msm.launches
+    got = pm.shard_map_msm(pts, sc, pm.make_mesh([dev] * mp, axis="mp"))
+    assert cuda_curve.msm.launches - before == mp  # one kernel call a slice
+    for g, w in zip(tc.to_affine(got), tc.to_affine(cuda_curve.msm(pts, sc))):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("K", [1, 5, 33])
