@@ -107,15 +107,27 @@ exporters, the submit tool, multi-device verification), in phases:
      ``sharded_msm`` at K = 16, 17, 32, 36, equal in affine coordinates to
      the unsharded kernel, and the MSM kernel's device time at the mp-2
      slice beside the whole K; then ``init_distributed`` at world size 1
-     (NCCL): the DP leg over the process group and a cross-rank
-     ``sharded_msm`` (``dist.all_gather``) at K = 16 and 36;
+     (NCCL): the DP leg over the process group (its verdicts and weights
+     through the group's collectives) and ``sharded_msm`` over the group's
+     mesh at K = 16 and 36 (its entries in one process: no collective);
   7. the probe path, launch counts set to 0 before it and read after it:
      ``tools.mma_probe`` at B = 1024 and ``tools.perf_probe`` at B = 256 on
      the stages mul sqrtp msmp msmp5 subk pairingp verifyh, each checking
      its own results, the verifyh stage traced into ``chiprun_out/``; every
      kernel must launch;
   8. trace: one default-mode ``verify()`` at B = 1024 under
-     ``torch.profiler``, and the share of it in which the card was busy.
+     ``torch.profiler``, and the share of it in which the card was busy;
+  9. bench: ``entry.entry()``'s step (its verdicts), ``entry.dryrun_multichip(4)``
+     on the virtual mesh (all three legs, none skipped), and the port's bench
+     (``plutus_halo2_tpu_torch.bench.main``) at B = 1024 with every row, its
+     verdict asserts and the K = 64 MSM's parity with the plain windowed MSM;
+     each row's line, then the rows as a table, and the phase's seconds; each
+     counted as a path; then the K = 64 MSM on the bench's tensors limb for
+     limb against the plain windowed MSM, its device time and bound.
+
+Kernel times come from ``utils.profiling.device_ms``, whose windows are
+held to the per-call kernel count and the CUDA-event time of the calls;
+every window it refused on the way is printed with its filler count.
 
 Prints one ``{"kernels": [...]}`` line, then the card line, and as the last
 line ``{"ok": true, "device": {...}}``. Any failure raises (non-zero exit).
@@ -467,6 +479,16 @@ def main() -> int:
 
     def stamp(label):
         print(f"[time] {label}: {time.perf_counter() - t_run:.1f} s into the run")
+
+    reported = [0]
+
+    def report_refusals(label):
+        """device_ms's windows refused since the last report."""
+        new = WINDOW["refused"][reported[0]:]
+        reported[0] = len(WINDOW["refused"])
+        print(f"[timer] {label}: {len(new)} device_ms windows refused, fillers now {WINDOW['fillers']}")
+        for r in new:
+            print(f"[timer]   refused at {r['fillers']} fillers ({r['names']}): {r['reason']}")
     rng = np.random.default_rng(SEED)
 
     # ---- 1. environment -------------------------------------------------
@@ -519,8 +541,10 @@ def main() -> int:
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
         }
         lib = "" if library_ms is None else f", library {library_ms:.4f} ms device"
+        w = WINDOW["last"]  # the window of the kernel's device time (library_ms's, where there is one)
         print(f"[kernel] {name}: exact, {ms:.4f} ms device, {call:.4f} ms per call (plain {plain_ms:.3f} ms, "
-              f"bound {bound[0]:.5f} ms by {bound[1]}{lib})")
+              f"bound {bound[0]:.5f} ms by {bound[1]}{lib}; last window {w['busy_ms']:.4f} ms of kernels in "
+              f"{w['event_ms']:.4f} ms of CUDA events, {w['host_ms']:.4f} ms enqueueing)")
 
     stamp("build")
 
@@ -894,6 +918,7 @@ def main() -> int:
               f"(device {results[name]['ms']:.4f}); {warps} warps a block")
 
     stamp("kernel phase")
+    report_refusals("field and kernel phases")
 
     # the MSM and the fused decompress kernel at the circuits phase's shapes,
     # each held against its plain versions on the full (B, K) tensors that
@@ -935,6 +960,7 @@ def main() -> int:
               f"(ratio {times[0] / bound[0]:.1f})")
 
     stamp("the circuits' kernel shapes")
+    report_refusals("the circuits' kernel shapes")
 
     # ---- 5. the paths ------------------------------------------------------
     counters = {
@@ -1331,6 +1357,7 @@ def main() -> int:
     wall_b2 = timed(lambda: default.verify(proof_t, pis_t, None, gen))
     print(f"[mesh] path (b) in this phase: {wall_b2 * 1e3:.1f} ms per batch (median of 3)")
     lv, l_proof, l_pis, _l_hints, l_want, _l_hinted = circuit_inputs("lookup_table")
+    kv, k_proof, k_pis, _k_hints, k_want, _k_hinted = circuit_inputs("atms_with_lookups")
     # (label, verifier, expected verdicts, MSM launches, multi-open K, the leg)
     legs = (("1 data_parallel_verify, simple_mul", default, expected, flat.size, [16],
              lambda: pm.data_parallel_verify(default, flat, proof_t, pis_t, sub_rng=gen)),
@@ -1339,7 +1366,9 @@ def main() -> int:
             ("2 verify_2d dp x mp, simple_mul", default, expected, grid.size, [16],
              lambda: pm.verify_2d(default, grid, proof_t, pis_t, sub_rng=gen)),
             ("3 data_parallel_verify, lookup_table", lv, l_want, flat.size, [19],
-             lambda: pm.data_parallel_verify(lv, flat, l_proof, l_pis, sub_rng=gen)))
+             lambda: pm.data_parallel_verify(lv, flat, l_proof, l_pis, sub_rng=gen)),
+            ("3k data_parallel_verify, atms_with_lookups", kv, k_want, flat.size, [36],
+             lambda: pm.data_parallel_verify(kv, flat, k_proof, k_pis, sub_rng=gen)))
     for label, v_l, want_l, n_msm, want_k, fn in legs:
         launches = run_path(f"mesh {label}", fn, want_l, base + ("decompress",) if "hints" in label else hintless)
         k_l = v_l.msm_term_counts
@@ -1372,6 +1401,11 @@ def main() -> int:
         pts_h, sc_h = pts_k[:, :k0].contiguous(), sc_k[:, :k0].contiguous()
         msm_check(pts_h, sc_h, ref=None if k == 16 else refs[k0])  # K = 16: pts' own per-point MSM
         t_whole = _times(lambda: cuda_curve.msm(pts_k, sc_k), "msm_kernel", 10)
+        last = WINDOW["last"]  # the device time against the CUDA events around the same 10 calls
+        print(f"[timer] msm K = {k} window: {last['calls']} calls, {last['device_ms']:.4f} ms of MSM kernels "
+              f"({last['busy_ms']:.4f} of all) in {last['event_ms']:.4f} ms of CUDA events "
+              f"({last['device_ms'] / last['event_ms']:.4f}; {last['host_ms']:.4f} ms enqueueing), "
+              f"{last['fillers']} fillers")
         t_half = _times(lambda: cuda_curve.msm(pts_h, sc_h), "msm_kernel", 10)
         mesh2 = pm.make_mesh([dev] * 2, axis="mp")
         call2 = _call_ms(lambda: pm.shard_map_msm(pts_k, sc_k, mesh2), 5)
@@ -1384,8 +1418,8 @@ def main() -> int:
               f"point-add tree)")
 
     # init_distributed at world size 1 (NCCL): a mesh over the process group,
-    # the DP leg through its collectives, and a cross-rank sharded_msm (the
-    # partials through dist.all_gather)
+    # the DP leg through its collectives, and sharded_msm over the group's
+    # mesh (its entries all in this process: no collective)
     with tempfile.TemporaryDirectory() as store:
         dev_d = pm.init_distributed(f"file://{os.path.join(store, 'store')}", world_size=1, rank=0)
         try:
@@ -1398,13 +1432,14 @@ def main() -> int:
                 one = pm.sharded_msm(pm.make_mesh([dev_d] * 2, axis="shard"), pts_k[0], sc_k[0])
                 if not all(torch.equal(x, y) for x, y in zip(tc.to_affine(one[None]),
                                                              tc.to_affine(cuda_curve.msm(pts_k[:1], sc_k[:1])))):
-                    _fail(f"the cross-rank sharded_msm at K = {k} differs from the unsharded kernel")
-            print("[mesh] cross-rank sharded_msm at K = 16 and 36 (dist.all_gather over NCCL) equals the "
-                  "unsharded kernel in affine")
+                    _fail(f"sharded_msm over the process group's mesh at K = {k} differs from the unsharded kernel")
+            print("[mesh] sharded_msm over the process group's mesh at K = 16 and 36 (one process: no "
+                  "collective) equals the unsharded kernel in affine")
         finally:
             dist.destroy_process_group()
 
     stamp("mesh")
+    report_refusals("mesh")
 
     # ---- 7. the probe path ------------------------------------------------------
     from plutus_halo2_tpu_torch.tools import mma_probe, perf_probe
@@ -1439,7 +1474,48 @@ def main() -> int:
         print(f"[trace]   {us / 1e3:9.3f} ms in {count:5d} x {name[:100]}")
 
     stamp("trace")
-    print(f"[timer] device_ms's windows open with {WINDOW['fillers']} filler kernels (raised {WINDOW['raised']} times)")
+
+    # ---- 9. bench: entry(), dryrun_multichip(4), the port's bench ----------------
+    from plutus_halo2_tpu_torch import bench
+    from plutus_halo2_tpu_torch import entry as entry_mod
+
+    t9 = time.perf_counter()
+    fn_e, args_e = entry_mod.entry()
+    run_path("entry() (hintless aggregate, batch 4)", lambda: fn_e(*args_e), np.ones(4, bool), hintless)
+    legs9, launches, first_s = counted("dryrun_multichip(4)", lambda: entry_mod.dryrun_multichip(4), hintless)
+    if set(legs9) != {"dp", "dp_x_mp", "atms_with_lookups"} or "SKIPPED" in legs9.values():
+        _fail(f"dryrun_multichip(4) did not run all three legs: {legs9}")
+    print(f"[bench] dryrun_multichip(4) on the virtual mesh: three legs, verdicts exact, "
+          f"launches {launches}, {first_s:.1f} s")
+    bench_args = ["--batch", str(B), "--rows", "all", "--iters", "3",
+                  "--out", os.path.join(out_dir, "bench_details.json")]
+    rows9, launches, first_s = counted("bench", lambda: bench.main(bench_args),
+                                       base + ("decompress", "pow_fp", "subgroup"))
+    # the bench's K = 64 MSM (held there against the plain windowed MSM and
+    # the spec on these tensors): its device time beside its bound
+    pts64, sc64, _host64, _scal64 = bench.msm_inputs(B, dev)
+    got64 = cuda_curve.msm(pts64, sc64)
+    want64, plain64 = _plain(lambda: tc.msm_windowed(pts64, sc64))
+    if not torch.equal(got64, want64):
+        _fail(f"MSM kernel at ({B}, {bench.MSM_K}) differs from the plain windowed MSM limb for limb")
+    t64 = _times(lambda: cuda_curve.msm(pts64, sc64), "msm_kernel", 10)
+    b64 = msm_bound(pts64, sc64)
+    print(f"[bench] msm at ({B}, {bench.MSM_K}): exact limb for limb (plain {plain64:.3f} ms), {t64[0]:.4f} ms "
+          f"device, {t64[1]:.4f} ms per call, bound {b64[0]:.5f} ms by {b64[1]} (ratio {t64[0] / b64[0]:.1f})")
+    if rows9[-1]["metric"] != bench.HEADLINE or len(rows9) != 15:
+        _fail(f"bench emitted {[r['metric'] for r in rows9]}")
+    print(f"[bench] {len(rows9)} rows at B = {B} (bench.main {' '.join(bench_args)}), launches {launches}, "
+          f"{first_s:.1f} s:")
+    print(f"[bench]   {'metric':<66} {'value':>12} {'steady s':>9} {'latency s':>9} {'warmup s':>9}  msm_terms")
+    for r in rows9:
+        print(f"[bench]   {r['metric']:<66} {r['value']:12.1f} {r['steady_state_sec']:9.4f} "
+              f"{r.get('latency_sec', float('nan')):9.4f} {r['warmup_sec']:9.4f}  {r.get('msm_terms', r.get('K'))}")
+    print(f"[bench] phase 9: {time.perf_counter() - t9:.1f} s")
+
+    stamp("bench")
+    report_refusals("the rest of the run")
+    print(f"[timer] device_ms's windows open with {WINDOW['fillers']} filler kernels (raised {WINDOW['raised']} "
+          f"times, {len(WINDOW['refused'])} windows refused)")
     ecc_after, xid = _health()
     print(f"[health] ECC after the run: {ecc_after} (before: {ecc_before})")
     print(f"[health] Xid: {xid}")

@@ -14,8 +14,12 @@ threads launch on one device or interleave its stage events.
 
 A mesh built while a ``torch.distributed`` process group is up spans the
 processes: its entries are every rank's devices in rank order, each process
-runs the shards it owns, verdicts are all-gathered, and an MSM axis that
-spans the processes gathers its partial sums with ``dist.all_gather``."""
+runs the shards it owns, and verdicts are all-gathered. An MSM axis whose
+entries lie in more than one process gathers its partial sums with
+``dist.all_gather`` inside a process subgroup of just those processes
+(``Mesh.process_groups``), wherever the group lies and however many entries
+each of them owns, as the JAX package's ``shard_map`` all-gathers over its
+mp axis; one whose entries lie in one process takes no collective."""
 
 from __future__ import annotations
 
@@ -46,9 +50,10 @@ def _norm(device) -> torch.device:
 
 class Mesh:
     """Devices (an object array of torch.device, one dim per axis) with axis
-    names, and the rank of the process that owns each entry."""
+    names, and the rank of the process that owns each entry. `groups`
+    seeds the cache of ``process_groups`` (axis name -> its groups)."""
 
-    def __init__(self, devices, axis_names, ranks=None, distributed: bool = False):
+    def __init__(self, devices, axis_names, ranks=None, distributed: bool = False, groups=None):
         arr = np.asarray(devices, dtype=object)
         self.devices = np.vectorize(_norm, otypes=[object])(arr) if arr.size else arr
         self.axis_names = tuple(axis_names)
@@ -57,6 +62,23 @@ class Mesh:
         self.ranks = np.zeros(arr.shape, int) if ranks is None else np.asarray(ranks).reshape(arr.shape)
         self.distributed = distributed
         self.rank = dist.get_rank() if distributed else 0
+        self._groups = dict(groups or {})
+
+    def process_groups(self, axis_name: str) -> list:
+        """One process group per line of entries along `axis_name` (the
+        entries that share every other axis's index), in line order: None
+        where the line's entries lie in one process (no collective), else
+        ``dist.new_group`` of the line's ranks. Made on the first call and
+        kept on the mesh. ``new_group`` must be called by every rank of the
+        process group, in one order, also by ranks outside the new group:
+        so call this on every rank, as the mesh's entry points do."""
+        if axis_name not in self._groups:
+            i = self.axis_names.index(axis_name)
+            lines = np.moveaxis(self.ranks, i, -1).reshape(-1, self.ranks.shape[i])
+            self._groups[axis_name] = [
+                dist.new_group(sorted(set(line))) if self.distributed and len(set(line)) > 1 else None
+                for line in lines.tolist()]
+        return self._groups[axis_name]
 
     @property
     def shape(self) -> dict:
@@ -123,8 +145,10 @@ def make_mesh_2d(dp: int | None = None, mp: int = 1, devices=None,
                  axes: tuple = ("dp", "mp")) -> Mesh:
     """Two-axis mesh: `dp` (outer, data-parallel over proofs) x `mp` (inner,
     model-parallel over MSM points). The entries are ordered by rank, so
-    with more than one process the dp axis runs across processes and an mp
-    group stays inside one wherever mp divides its device count."""
+    with more than one process the dp axis runs across processes, and an mp
+    group stays inside one process wherever mp divides its device count;
+    else the group spans processes and gathers its MSM partials in a process
+    subgroup (``process_groups``)."""
     devs, ranks, distributed = _entries(devices)
     n = len(devs)
     if dp is None:
@@ -271,16 +295,19 @@ def verify_2d(verifier, mesh: Mesh, proof_bytes, public_inputs,
     ``shard_map_msm`` for the call and restored). A group's scalar work
     runs once, on the group's first device that this process owns (on every
     process of a group that spans several, as in the JAX package's
-    shard_map)."""
+    shard_map). Call it on every rank of a distributed mesh: the mp groups'
+    process subgroups are made on the first call."""
     if sorted(mesh.axis_names) != sorted((dp_axis, mp_axis)):
         raise ValueError(f"verify_2d needs a mesh of axes ({dp_axis!r}, {mp_axis!r}), got {mesh.axis_names}")
+    groups = mesh.process_groups(mp_axis)  # line c is dp position c's mp group, as _slots' row c
     sw = _weights(verifier, mesh, sub_rng)
     proofs, pis = shard_batch(mesh, proof_bytes, public_inputs, axis_name=dp_axis)
     devs, ranks = _slots(mesh, dp_axis)
 
     def group(v, c):
         prev = v.msm
-        v.msm = functools.partial(shard_map_msm, axis=Mesh(devs[c], (mp_axis,), ranks[c], mesh.distributed))
+        v.msm = functools.partial(shard_map_msm, axis=Mesh(devs[c], (mp_axis,), ranks[c], mesh.distributed,
+                                                           groups={mp_axis: [groups[c]]}))
         try:
             return v.verify(proofs[c], pis[c], None, sub_weights=sw).cpu().numpy()
         finally:
@@ -300,9 +327,12 @@ def shard_map_msm(points, scalars, axis: Mesh):
     partial MSM of its 1/n slice of the point axis on its device (the MSM
     kernel), and the partials combine on the input's device
     by a point-add tree (``ops/curve.tree_sum``; projective addition is no
-    elementwise sum of limbs). Where the axis spans the processes of its
-    mesh, each process computes its own entries' slices and the partials
-    are gathered with ``dist.all_gather``.
+    elementwise sum of limbs). Where the axis's entries lie in several
+    processes, each process computes its own entries' slices, pads its
+    partials to the most entries a process owns with identity points, and
+    the partials are gathered with ``dist.all_gather`` in the axis's process
+    subgroup (``Mesh.process_groups``); a process that owns no entry of the
+    axis does not call it.
 
     points: (B, K, 3, 25), scalars: (B, K, 17). K is padded to a multiple of
     the axis size with identity points and zero scalars. Returns (B, 3, 25)
@@ -315,26 +345,24 @@ def shard_map_msm(points, scalars, axis: Mesh):
     if pad:
         points = torch.cat([points, tc.identity((B, pad), points.device)], 1)
         scalars = torch.cat([scalars, scalars.new_zeros((B, pad, scalars.shape[2]))], 1)
-    world = dist.get_world_size() if axis.distributed else 1
-    spans = axis.distributed and sorted(set(ranks)) == list(range(world))
-    if not spans and any(r != axis.rank for r in ranks):
-        raise ValueError(f"an MSM axis over some but not all processes ({ranks}) is not supported")
+    group = axis.process_groups(axis.axis_names[0])[0]
+    mine = [j for j in range(n) if ranks[j] == axis.rank]
+    if not mine or (group is None and len(mine) != n):
+        raise ValueError(f"process {axis.rank} owns {len(mine)} of the MSM axis's entries (ranks {ranks})")
 
     def part(j):
         with _on(devs[j]):
             return cuda_curve.msm(points[:, j * k0 : (j + 1) * k0].to(devs[j]).contiguous(),
                                   scalars[:, j * k0 : (j + 1) * k0].to(devs[j]).contiguous())
 
-    mine = [j for j in range(n) if ranks[j] == axis.rank]
     parts = torch.stack([part(j).to(points.device) for j in mine], 1)  # (B, n_local, 3, L)
-    if spans:
-        counts = [ranks.count(r) for r in range(world)]
-        if len(set(counts)) != 1 or ranks != sorted(ranks):
-            raise ValueError(f"a cross-process MSM axis needs as many entries on each rank, in rank order: {ranks}")
-        comm = _comm_device()
-        sent = parts.to(comm).contiguous()
-        got = [torch.empty_like(sent) for _ in range(world)]
-        dist.all_gather(got, sent)
+    if group is not None:
+        width = max(ranks.count(r) for r in set(ranks))
+        if len(mine) < width:
+            parts = torch.cat([parts, tc.identity((B, width - len(mine)), points.device)], 1)
+        sent = parts.to(_comm_device()).contiguous()
+        got = [torch.empty_like(sent) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(got, sent, group=group)
         parts = torch.cat(got, 1).to(points.device)
     return tc.tree_sum(parts)
 
@@ -343,7 +371,8 @@ def sharded_msm(mesh: Mesh, points, scalars, axis_name: str = "shard"):
     """Standalone point-sharded MSM over a one-axis mesh: points (K, 3, 25),
     scalars (K, 17), any K (padded as ``shard_map_msm`` pads). Returns the
     (3, 25) projective sum on the mesh's first device that this process
-    owns."""
+    owns. Call it on every rank of a distributed mesh (its process subgroup
+    is made on the first call)."""
     if mesh.axis_names != (axis_name,):
         raise ValueError(f"sharded_msm needs a one-axis mesh named {axis_name!r}, got {mesh.axis_names}")
     home = _home(mesh, mesh.devices.ravel(), mesh.ranks.ravel())

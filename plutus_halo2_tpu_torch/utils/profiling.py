@@ -24,14 +24,41 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # On the H100 the profiler lost the first device records of a window, more
 # of them the longer a process ran (tools/timer_probe.py: none for 24 s,
 # then one more about every 30 s; the clocks agreed to a few us, and idle
-# margins did not help). So device_ms runs its calls between two marker
-# kernels (torch.cuda._sleep's spin_kernel), counts only what lies between
-# them, and opens the window with filler kernels, more of them (for this
-# call and the later ones) until the start marker is in the window.
+# margins did not help), a window of ~105,000 kernels lost its last ~60
+# records, and windows that kept every record could still hold wrong
+# durations (one of 10 MSM kernels read 23 % short, one of pairing kernels
+# 0.6 % longer than the CUDA events around it).
+# So device_ms opens each window with filler kernels, runs between marker
+# kernels (torch.cuda._sleep's spin_kernel) one call that gives the
+# per-call count of the counted kernels and then the timed calls, and
+# closes it with as many fillers again. It counts only what lies between
+# the markers and takes the window only whole: every marker there, exactly
+# calls x that count, no more device time than the CUDA events around the
+# calls saw (to their clocks' agreement) and no less than they saw once the
+# host had enqueued the calls (less a launch gap a kernel: the queue was
+# full, the card busy). A window that lost records is run again with more
+# fillers (for this call and the later ones), one with wrong durations
+# again as it was, at most DURATION_RETRIES times. Each refused window is
+# logged in WINDOW["refused"], the last accepted one's totals in
+# WINDOW["last"]. One profiler session a window: with two (one to learn the
+# count, one to time), late in a long run every window of one stage lost
+# its end marker.
 MARK = "spin_kernel"
 MARK_CYCLES = 1000
-WINDOW = {"fillers": 16, "raised": 0}
+WINDOW = {"fillers": 16, "raised": 0, "refused": []}
 MAX_FILLERS = 1 << 16
+DURATION_RETRIES = 8
+# how far the kernels' durations may exceed the CUDA events around them:
+# the events' resolution (~0.5 us), a profiler record's (~1 us a kernel)
+# and a relative 5e-4 for the two clocks (accepted windows on an H100 were
+# within 1.5e-4)
+EVENT_RESOLUTION_MS = 1e-3
+RECORD_RESOLUTION_MS = 1e-3
+CLOCK_AGREEMENT = 5e-4
+# the card's idle time between two queued kernels in a profiled window: 17
+# us between 3.3 ms MSM kernels on an H100; the allowance keeps a
+# margin and still catches records short by a share of a kernel
+LAUNCH_GAP_MS = 0.05
 
 
 @contextlib.contextmanager
@@ -112,79 +139,165 @@ def device_time_by_name(trace, top: int | None = None) -> list[tuple[str, int, f
     return sorted(((n, c, us) for n, (c, us) in totals.items()), key=lambda r: -r[2])[:top]
 
 
-def kernel_us(trace, names=None) -> tuple[float, int]:
-    """(total us, count) of the trace's device kernels whose name contains
-    one of `names` (every device kernel when None). Raises ValueError when
-    no such kernel ran: a CPU trace, a profiler that could not read the
-    card, or a window in which the named kernels took no device time."""
+def _named(trace, names) -> tuple[float, int]:
+    """(total us, count) of the device kernels named like `names` (every
+    one when None), (0.0, 0) when there are none."""
     total, count = 0.0, 0
     for e in _trace_events(trace):
         if e.get("cat") == "kernel" and (names is None or any(n in e.get("name", "") for n in names)):
             total += float(e["dur"])
             count += 1
+    return total, count
+
+
+def kernel_us(trace, names=None) -> tuple[float, int]:
+    """(total us, count) of the trace's device kernels whose name contains
+    one of `names` (every device kernel when None). Raises ValueError when
+    no such kernel ran: a CPU trace, a profiler that could not read the
+    card, or a window in which the named kernels took no device time."""
+    total, count = _named(trace, names)
     if not count or total <= 0:
         raise ValueError(f"no device time of kernels {names or 'of any name'} in the trace")
     return total, count
 
 
-def window_us(events, names, calls: int) -> float | None:
-    """The summed device us of the kernels named like `names` (every kernel
-    when None) that lie between the two MARK kernels of one window of
-    `calls` calls (events: as kernel_us takes them, "ts" and "dur" in us); None
-    when the profiler lost records of the window: a marker missing, or
-    named kernels that are not a whole number per call. Raises ValueError
-    (kernel_us) when the markers are there and the named kernels took no
-    device time."""
+def _window_gaps(events, marks: int = 2):
+    """The kernels strictly between each two consecutive MARK kernels of a
+    window of `marks` markers (a list per gap), or None when the window
+    holds another number of markers."""
     kernels = [e for e in _trace_events(events) if e.get("cat") == "kernel"]
-    marks = sorted((e for e in kernels if MARK in e.get("name", "")), key=lambda e: float(e["ts"]))
-    if len(marks) != 2:
+    found = sorted((e for e in kernels if MARK in e.get("name", "")), key=lambda e: float(e["ts"]))
+    if len(found) != marks:
         return None
-    lo, hi = float(marks[0]["ts"]) + float(marks[0]["dur"]), float(marks[1]["ts"])
-    inside = [e for e in kernels if MARK not in e.get("name", "")
-              and lo <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= hi]
-    total, count = kernel_us(inside, names)
+    edges = [(float(a["ts"]) + float(a["dur"]), float(b["ts"])) for a, b in zip(found, found[1:])]
+    return [[e for e in kernels if MARK not in e.get("name", "")
+             and lo <= float(e["ts"]) and float(e["ts"]) + float(e["dur"]) <= hi] for lo, hi in edges]
+
+
+def window_us(events, names, calls: int, learn: bool = False) -> float | None:
+    """The summed device us of the kernels named like `names` (every kernel
+    when None) that lie between the last two MARK kernels of one window of
+    `calls` calls (events: as kernel_us takes them, "ts" and "dur" in us).
+    With `learn` the window has three markers and one call between the
+    first two, whose count of those kernels is the per-call count. None
+    when the profiler lost records of the window: a marker missing, or with
+    `learn` a count other than calls x the per-call count, else, for named
+    kernels, not a whole number per call. Raises ValueError (kernel_us)
+    when the markers are there and the named kernels took no device time."""
+    gaps = _window_gaps(events, 3 if learn else 2)
+    if gaps is None:
+        return None
+    total, count = kernel_us(gaps[-1], names)
+    if learn:
+        return total if count == calls * _named(gaps[0], names)[1] else None
     if names is not None and count % calls:
         return None
     return total
 
 
-def device_ms(fn, names=None, calls: int = 10, warmup: int = 1) -> float:
+def _profiled_window(fn, calls: int, fillers: int, learn: bool):
+    """One profiler session: `fillers` filler kernels, a marker, with
+    `learn` one call of fn and another marker, then `calls` calls of fn
+    between two CUDA events, the end marker and `fillers` more fillers (so
+    that a session that drops its last records drops those).
+    Returns (the window's
+    device kernels as trace events, the events' ms, the host's ms to
+    enqueue the calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    filler = torch.zeros(1, device="cuda")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(fillers):
+            filler.add_(1.0)
+        torch.cuda._sleep(MARK_CYCLES)
+        if learn:
+            fn()
+            torch.cuda._sleep(MARK_CYCLES)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda._sleep(MARK_CYCLES)
+        for _ in range(fillers):
+            filler.add_(1.0)
+        torch.cuda.synchronize()
+    events = [{"ph": "X", "cat": "kernel", "name": e.name, "ts": e.time_range.start,
+               "dur": e.time_range.elapsed_us()} for e in prof.events() if _on_device(e)]
+    return events, start.elapsed_time(end), host_ms
+
+
+def _refuse(reason: str, names, fillers: int, lost: bool = True):
+    """Log a refused window; after a window that lost records, more fillers."""
+    WINDOW["refused"].append({"names": names, "reason": reason, "fillers": fillers})
+    if not lost:
+        return
+    if fillers >= MAX_FILLERS:
+        raise ValueError(f"device_ms: the profiler lost records of the window after {fillers} filler "
+                         f"kernels ({reason})")
+    WINDOW["fillers"] = min(4 * fillers, MAX_FILLERS)
+    WINDOW["raised"] += 1
+
+
+def device_ms(fn, names=None, calls: int = 10, warmup: int = 1, exact_count: bool = True) -> float:
     """The device time of one call of fn in ms: the summed durations of
     the device kernels it launches (those whose name contains one of
     `names`, or all of them when None) over a ``torch.profiler`` window of
     `calls` calls, divided by `calls`. The host's path to each launch is not
     in it. The calls run between two marker kernels, after filler kernels
-    (see WINDOW) whose number grows until the window holds both markers.
-    Raises on the CPU, when the window holds no such kernel, and when a
-    marker is lost after MAX_FILLERS fillers: it never falls back to the
-    host clock."""
+    (see WINDOW) whose number grows until the window is whole: both markers
+    there; with `exact_count`, exactly `calls` x the per-call count of those
+    kernels that one more call before them, between markers of the same
+    window, showed (for functions of a few kernels: a whole batch's ~20,000
+    small kernels are counted only for their device time); a total no
+    larger than the CUDA-event time of the calls (to the clocks'
+    agreement); and all the window's kernels together no shorter than that
+    time less the host's time to enqueue the calls and LAUNCH_GAP_MS a
+    kernel (after the last launch the queued kernels run back to back).
+    Raises on the CPU, when the window holds no such kernel, when a window
+    lost records at MAX_FILLERS fillers, and after DURATION_RETRIES windows
+    with wrong durations: it never falls back to the host clock."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_ms needs a CUDA device")
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(warmup):
         fn()
-    filler = torch.zeros(1, device="cuda")
-    torch.cuda.synchronize()
+    marks = 3 if exact_count else 2
+    wrong = 0  # windows refused for their durations
     while True:
         fillers = WINDOW["fillers"]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(fillers):
-                filler.add_(1.0)
-            torch.cuda._sleep(MARK_CYCLES)
-            for _ in range(calls):
-                fn()
-            torch.cuda._sleep(MARK_CYCLES)
-            torch.cuda.synchronize()
-        events = [{"ph": "X", "cat": "kernel", "name": e.name, "ts": e.time_range.start,
-                   "dur": e.time_range.elapsed_us()} for e in prof.events() if _on_device(e)]
-        total = window_us(events, names, calls)
-        if total is not None:
+        events, event_ms, host_ms = _profiled_window(fn, calls, fillers, learn=exact_count)
+        total = window_us(events, names, calls, learn=exact_count)
+        # once the host has enqueued every call, the card runs them without a
+        # pause: its kernels then fill the events' time but for the
+        # enqueueing and a launch gap a kernel
+        gaps = _window_gaps(events, marks)
+        busy_ms, n_all = _named(gaps[-1], None) if gaps else (0.0, 0)
+        floor_ms = event_ms - host_ms - LAUNCH_GAP_MS * n_all
+        if total is None:
+            if gaps is None:
+                order = sorted(events, key=lambda e: float(e["ts"]))
+                seen = [i for i, e in enumerate(order) if MARK in e["name"]]
+                reason = (f"{len(seen)} of {marks} markers among {len(events)} kernels (at {seen[:4]}; launched "
+                          f"{fillers} fillers, the calls, {fillers} fillers)")
+            else:
+                counts = [_named(g, names)[1] for g in gaps]
+                reason = (f"{counts[-1]} kernels where {calls} calls launch "
+                          + (f"{calls} x {counts[0]}" if exact_count else f"a multiple of {calls}"))
+            _refuse(reason, names, fillers)
+        elif (total / 1e3 > event_ms * (1 + CLOCK_AGREEMENT) + EVENT_RESOLUTION_MS + RECORD_RESOLUTION_MS * n_all
+              or busy_ms / 1e3 < floor_ms):
+            wrong += 1
+            _refuse(f"{total / 1e3:.4f} ms of the counted kernels, {busy_ms / 1e3:.4f} of all, in {event_ms:.4f} "
+                    f"ms of CUDA events, {host_ms:.4f} ms of them enqueueing", names, fillers, lost=False)
+            if wrong >= DURATION_RETRIES:
+                raise ValueError(f"device_ms: {wrong} windows with wrong durations in a row at {fillers} fillers")
+        else:
+            WINDOW["last"] = {"names": names, "calls": calls, "fillers": fillers, "device_ms": total / 1e3,
+                              "event_ms": event_ms, "host_ms": host_ms, "busy_ms": busy_ms / 1e3}
             return total / 1e3 / calls
-        if fillers >= MAX_FILLERS:
-            raise ValueError(f"the profiler lost a marker of the window after {fillers} filler kernels")
-        WINDOW["fillers"] = min(4 * fillers, MAX_FILLERS)
-        WINDOW["raised"] += 1
 
 
 def _on_device(evt) -> bool:

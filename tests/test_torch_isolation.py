@@ -48,7 +48,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == "[]"
     for mod in ("refimpl.transcript", "refimpl.lagrange", "refimpl.multiopen", "refimpl.pairing",
                 "refimpl.verifier", "utils.tracing", "utils.serialization", "utils.artifacts",
-                "parallel.mesh", "tools.submit", "tools.multihost_smoke"):
+                "parallel.mesh", "tools.submit", "tools.multihost_smoke", "bench", "entry"):
         assert f"plutus_halo2_tpu_torch.{mod}" in names.split(), mod
 
 

@@ -11,8 +11,9 @@ CPU, every kernel through its plain version; verdicts and points exactly
   stays the unsharded K and the MSM hook is restored;
 - shards on two devices other than the verifier's own ("cpu:1", "cpu:2"):
   one replica each, on a thread each, built once and reused;
-- lookup_table through the DP mesh (dryrun_multichip's third leg): the
-  port's spec verifier's verdicts;
+- lookup_table and atms_with_lookups (dryrun_multichip's third leg, K = 36:
+  more than one point on an MSM lane) through the DP mesh: the port's spec
+  verifier's verdicts;
 - the hook on simple_mul GWC19 (K = 3 and 17 over mp 2: padded slices)
   gives the unsharded core's el and er;
 - shard_map_msm against the JAX package's shard_map_msm on 4 of its 8
@@ -125,9 +126,8 @@ def test_replicas_on_other_devices(sm):
 
 
 def test_data_parallel_verify_lookup_table():
-    """dryrun_multichip's third leg: a lookup circuit through the DP mesh
-    (the honest proof, the invalid twin, a corrupted proof scalar), the
-    spec's verdicts row by row."""
+    """A lookup circuit through the DP mesh (the honest proof, the invalid
+    twin, a corrupted proof scalar), the spec's verdicts row by row."""
     plan, proof, bad, pis = load_set("lookup_table")
     v = TorchVerifier(plan, device="cpu")
     batch = np.stack([np.frombuffer(p, np.uint8) for p in (proof, bad, proof, proof)]).copy()
@@ -136,6 +136,21 @@ def test_data_parallel_verify_lookup_table():
                                   sub_rng=torch.Generator().manual_seed(6))
     assert got.tolist() == [verify(plan, row.tobytes(), pis)[0] for row in batch] == [True, False, True, False]
     assert v.msm_term_counts == [19]
+
+
+def test_data_parallel_verify_atms_with_lookups():
+    """dryrun_multichip's third leg (__graft_entry__.py:135-177): the
+    atms_with_lookups plan, rebuilt from the committed artifacts, through
+    the DP mesh with the bit-flipped row at min(1, n - 1); the spec's
+    verdicts row by row, and the multi-open MSM at K = 36."""
+    plan, proof, _bad, pis = load_set("atms_with_lookups")
+    v = TorchVerifier(plan, device="cpu")
+    batch = np.stack([np.frombuffer(proof, np.uint8)] * 2).copy()
+    batch[1, 100] ^= 0x40
+    got = pm.data_parallel_verify(v, pm.make_mesh(["cpu"] * 2), batch, v.encode_public_inputs([pis] * 2),
+                                  sub_rng=torch.Generator().manual_seed(8))
+    assert got.tolist() == [verify(plan, row.tobytes(), pis)[0] for row in batch] == [True, False]
+    assert v.msm_term_counts == [36]
 
 
 def test_msm_hook_on_gwc_matches_unsharded_core():
