@@ -10,14 +10,16 @@ subgroup test fused into hinted decompression), the modes beside it,
 GWC19 flavor and the lookup and ATMS circuits, and the probe path (the
 tensor-core probe and the stage probe) through their hand-written CUDA
 kernels, and the modules around them (the spec verifier and its traces, the
-exporters, the submit tool, multi-device verification), in phases:
+exporters, the submit tool, multi-device verification), and the proof
+generators (keygen and prove over the Fr polynomial kernels), in phases:
 
   1. environment: torch / CUDA / nvcc versions, the card's name and power
      limit, its ECC counters and the kernel log's Xid lines (again at the end);
   2. build: nvcc builds every kernel from ``plutus_halo2_tpu_torch/csrc``,
      and the build log's registers, stack frame and spill bytes of the
      lane-group kernels (MSM, fused decompress, subgroup, pow, transcript),
-     of both chains and of the Montgomery-product kernel are printed;
+     of both chains, of the Montgomery-product kernel and of the prover's
+     NTT stage, product and powers kernels are printed;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
      PyTorch product on 2^16 random canonical pairs (exactly equal), the Fp
      kernel timed beside its bound;
@@ -122,8 +124,22 @@ exporters, the submit tool, multi-device verification), in phases:
      (``plutus_halo2_tpu_torch.bench.main``) at B = 1024 with every row, its
      verdict asserts and the K = 64 MSM's parity with the plain windowed MSM;
      each row's line, then the rows as a table, and the phase's seconds; each
-     counted as a path; then the K = 64 MSM on the bench's tensors limb for
-     limb against the plain windowed MSM, its device time and bound.
+     counted as a path (the rows atms_50_90 and atms_with_lookups_50_90
+     verify the port's committed 50-of-90 sets, k = 20); then the K = 64 MSM
+     on the bench's tensors limb for limb against the plain windowed MSM,
+     its device time and bound;
+  10. prove: (i) the four Fr polynomial kernels of the prover
+     (``csrc/poly.cu``: NTT, elementwise product, scale, powers weighting)
+     against their plain versions at 2^4, 2^10, 2^16 (the 2-party ATMS
+     coset domain) and 2^22 (50 of 90's) elements, exactly equal, the NTT
+     also as the inverse of its omega^-1 call scaled by n^-1; each timed
+     and bounded at 2^16 (the kernels line) and 2^22; (ii) keygen and
+     prove on the card of simple_mul (halo2-book, the example's defaults),
+     simple_mul GWC19 (``TrapdoorSRS.from_seed(b"test-srs")``),
+     lookup_table, atms and atms_with_lookups (2 parties), each a counted
+     path, byte for byte equal to the committed proof and VK text, with
+     the seconds of each; (iii) each proof and its committed tampered twin
+     through ``TorchVerifier.verify`` on the card: [True, False], counted.
 
 Kernel times come from ``utils.profiling.device_ms``, whose windows are
 held to the per-call kernel count and the CUDA-event time of the calls;
@@ -440,6 +456,149 @@ def transcript_checks(buf, lengths, p1, p2, rng):
           f"chain floor {max_fb + 2} x = {(max_fb + 2) * comp_ms:.4f} ms")
 
 
+# the prover's Fr polynomial kernels (csrc/poly.cu): the port of the JAX
+# package's host C++ runtime, native/ph2_native.cpp (no Pallas kernel)
+POLY_KERNELS = ("fr_ntt", "fr_mul_array", "fr_scale_array", "fr_powers_mul_array")
+POLY_REPLACES = {"fr_ntt": ":138", "fr_mul_array": ":174", "fr_scale_array": ":183", "fr_powers_mul_array": ":191"}
+FR_PRODUCT_OPS = 2 * _cios_products(8)  # 272 32-bit integer operations
+PROVE_SIZES = (4, 10, 16, 22)  # log2 n of the parity checks: 2^16 the 2-party ATMS coset domain, 2^22 50 of 90's
+
+
+def _rand_words(n: int, rng, dev):
+    """(n, 8) int32 words of canonical values: 0, 1 and q - 1 first, then
+    random ones (top word below q's, so every value is below q)."""
+    import numpy as np
+    import torch
+
+    from plutus_halo2_tpu_torch.ops import poly as tpoly
+    from plutus_halo2_tpu_torch.refimpl.field import Q
+
+    w = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.uint64)
+    w[:, 7] = rng.integers(0, Q >> 224, size=n, dtype=np.uint64)
+    t = torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+    head = tpoly.to_words([0, 1, Q - 1][:n], dev)
+    t[: head.shape[0]] = head
+    return t
+
+
+def prove_phase(dev, rng, results, record, counters, counted, times, plain, stamp):
+    """Phase 10: (i) each poly kernel against its plain version at 2^4,
+    2^10, 2^16 and 2^22 elements, exactly (the NTT also as the inverse of
+    its omega^-1 call, scaled), timed and bounded at 2^16 and 2^22; (ii)
+    keygen and prove on the card of the five committed proofs, byte for
+    byte with their VK text, each a counted path; (iii) each proof and its
+    committed tampered twin through TorchVerifier.verify: [True, False]."""
+    import numpy as np
+    import torch
+
+    from plutus_halo2_tpu_torch.examples.atms import MSG
+    from plutus_halo2_tpu_torch.models.atms import AtmsCircuit, AtmsLookupCircuit, prepare_test_signatures
+    from plutus_halo2_tpu_torch.models.circuits import LookupRangeCircuit, SimpleMulCircuit
+    from plutus_halo2_tpu_torch.models.plan import FLAVOR_GWC, FLAVOR_HALO2
+    from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
+    from plutus_halo2_tpu_torch.ops import cuda_poly
+    from plutus_halo2_tpu_torch.ops import poly as tpoly
+    from plutus_halo2_tpu_torch.refimpl.field import Q, fr_inv
+    from plutus_halo2_tpu_torch.refimpl.keygen import keygen
+    from plutus_halo2_tpu_torch.refimpl.poly import domain_omega
+    from plutus_halo2_tpu_torch.refimpl.prover import prove
+    from plutus_halo2_tpu_torch.refimpl.srs import TrapdoorSRS
+    from plutus_halo2_tpu_torch.utils import artifacts
+    from plutus_halo2_tpu_torch.utils.serialization import vk_to_json
+
+    t10 = time.perf_counter()
+    k = int.from_bytes(rng.bytes(32), "little") % Q
+    fns = {
+        "fr_ntt": (lambda a, b: cuda_poly.fr_ntt(a, domain_omega(a.shape[0].bit_length() - 1)),
+                   lambda a, b: tpoly.ntt_plain(a, domain_omega(a.shape[0].bit_length() - 1)), "fr_"),
+        "fr_mul_array": (cuda_poly.fr_mul_array, tpoly.mul_array_plain, "fr_mul_array_kernel"),
+        "fr_scale_array": (lambda a, b: cuda_poly.fr_scale_array(a, k), lambda a, b: tpoly.scale_array_plain(a, k),
+                           "fr_scale_kernel"),
+        "fr_powers_mul_array": (lambda a, b: cuda_poly.fr_powers_mul_array(a, k),
+                                lambda a, b: tpoly.powers_mul_array_plain(a, k), "fr_powers_"),
+    }
+
+    def bound(name, n):
+        lg = n.bit_length() - 1
+        if name == "fr_ntt":  # (n / 2) log2 n products; each word read and written once
+            return _bound_ms(n // 2 * lg * FR_PRODUCT_OPS, 64 * n)
+        if name == "fr_mul_array":
+            return _bound_ms(n * FR_PRODUCT_OPS, 96 * n)
+        if name == "fr_scale_array":
+            return _bound_ms(n * FR_PRODUCT_OPS, 64 * n + 32)
+        return _bound_ms(2 * n * FR_PRODUCT_OPS, 64 * n + 32)  # k^i by a running product, then a_i k^i
+
+    for lg in PROVE_SIZES:
+        n = 1 << lg
+        a, b = _rand_words(n, rng, dev), _rand_words(n, rng, dev)
+        for name, (kern, plain_fn, kname) in fns.items():
+            got = kern(a, b)
+            want, plain_ms = plain(lambda: plain_fn(a, b))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = int((got != want).any(-1).sum())
+                _fail(f"{name} kernel differs from its plain version on {bad} of {n} elements")
+            if name == "fr_ntt":
+                w = domain_omega(lg)
+                back = cuda_poly.fr_scale_array(cuda_poly.fr_ntt(got, fr_inv(w)), fr_inv(n))
+                if not torch.equal(back, a):
+                    _fail(f"fr_ntt at 2^{lg}: the scaled omega^-1 transform is not its inverse")
+            if lg < 16:
+                continue
+            (ms, call), bd = times(lambda: kern(a, b), kname, 10), bound(name, n)
+            print(f"[prove] {name} at 2^{lg}: {ms:.4f} ms device, {call:.4f} ms per call, plain {plain_ms:.3f} ms, "
+                  f"bound {bd[0]:.5f} ms by {bd[1]} (ratio {ms / bd[0]:.1f})")
+            if lg == 16:  # the kernels line: the 2-party ATMS coset domain, the paths' largest
+                record(name, "plutus_halo2_tpu_torch/csrc/poly.cu",
+                       "plutus_halo2_tpu/native/ph2_native.cpp" + POLY_REPLACES[name], 0, (ms, call), plain_ms, bd)
+        print(f"[prove] poly kernels exact at n = 2^{lg} against their plain versions (the NTT also inverted)")
+    for name in POLY_KERNELS:
+        results[name]["launches"] = 0
+        counters[name] = getattr(cuda_poly, name)
+    stamp("prove phase: kernels")
+
+    # (ii) keygen and prove on the card, against the committed bytes
+    pks, sigs, _comm = prepare_test_signatures(2, 1, MSG)
+    cases = (  # name, circuit, flavor, SRS (None: the example's default), inputs, set
+        ("simple_mul", SimpleMulCircuit(), FLAVOR_HALO2, None, [42, 42, 42]),
+        ("simple_mul_gwc19", SimpleMulCircuit(), FLAVOR_GWC, TrapdoorSRS.from_seed(b"test-srs"), [42, 42, 42]),
+        ("lookup_table", LookupRangeCircuit(values=(3, 9, 14), bits=4), FLAVOR_HALO2, None, [7]),
+        ("atms", AtmsCircuit(pks, sigs, MSG, 1), FLAVOR_HALO2, None, None),
+        ("atms_with_lookups", AtmsLookupCircuit(pks, sigs, MSG, 1), FLAVOR_HALO2, None, None),
+    )
+    base = ("transcript", "pow_fr", "msm", "pairing", "decompress")
+    for name, circuit, flavor, srs, inputs in cases:
+        inputs = circuit.public_inputs() if inputs is None else inputs
+        t0 = time.perf_counter()
+        made, launches_k, keygen_s = counted(f"keygen {name}", lambda: keygen(circuit, flavor=flavor, srs=srs), ())
+        pk, plan = made
+        ext = max(2, 1 << (plan.degree - 1).bit_length())  # the prover's extension factor
+        needs = POLY_KERNELS if plan.vk.n * ext >= 128 else ()  # simple_mul's arrays are all below 128
+        proof, launches_p, prove_s = counted(f"prove {name}", lambda: prove(pk, plan, circuit, inputs), needs)
+        files = artifacts.read_set(name)
+        if proof.hex() != files["proof.hex"].strip():
+            _fail(f"prove {name}: the card's proof differs from the committed {name}_proof.hex")
+        if vk_to_json(plan.vk) != files["vk.json"]:
+            _fail(f"keygen {name}: the card's VK text differs from the committed {name}_vk.json")
+        print(f"[prove] {name} (k = {plan.vk.k}): keygen {keygen_s:.3f} s, prove {prove_s:.3f} s on the card, "
+              f"{len(proof)} bytes equal to the committed proof, VK text equal; launches keygen {launches_k}, "
+              f"prove {launches_p}")
+        # (iii) the proof and its committed tampered twin through TorchVerifier
+        invalid = bytes.fromhex(files["proof_invalid.hex"].strip())
+        v = TorchVerifier(plan)
+        batch = np.stack([np.frombuffer(proof, np.uint8), np.frombuffer(invalid, np.uint8)])
+        pis = torch.from_numpy(v.encode_public_inputs([inputs] * 2)).to(dev)
+        hints = torch.from_numpy(v.compute_y_hints(batch)).to(dev)
+        out, launches_v, _s = counted(f"verify {name}", lambda: v.verify(torch.from_numpy(batch).to(dev), pis, hints,
+                                                                          torch.Generator().manual_seed(0)), base)
+        if out.cpu().tolist() != [True, False]:
+            _fail(f"verify {name}: TorchVerifier gave {out.cpu().tolist()}, not [True, False]")
+        print(f"[prove] {name}: TorchVerifier on the card [True, False], launches {launches_v} "
+              f"({time.perf_counter() - t0:.1f} s with keygen and prove)")
+    print(f"[prove] phase 10: {time.perf_counter() - t10:.1f} s")
+    stamp("prove phase")
+
+
 def _health() -> tuple[str, str]:
     """The card's ECC counters and the kernel log's Xid lines: a hardware
     witness beside the run's own checks."""
@@ -515,7 +674,8 @@ def main() -> int:
         if line.startswith("==") or any(k in line for k in ("entry function", "registers", "stack frame")):
             print(f"[build] {line.strip()}")
     lane_groups = {r["function"]: r for name in ("msm_kernel", "subgroup_kernel", "pow_kernel", "transcript_kernel",
-                                                 "bf16_chain_kernel", "int8_chain_kernel", "mont_mul_kernel")
+                                                 "bf16_chain_kernel", "int8_chain_kernel", "mont_mul_kernel",
+                                                 "fr_ntt_stage_kernel", "fr_mul_array_kernel", "fr_powers_")
                    for r in _build.kernel_resources(name)}  # subgroup_kernel names the fused decompress too
     for r in lane_groups.values():
         print(f"[build] {r['function']}: {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
@@ -1502,7 +1662,7 @@ def main() -> int:
     b64 = msm_bound(pts64, sc64)
     print(f"[bench] msm at ({B}, {bench.MSM_K}): exact limb for limb (plain {plain64:.3f} ms), {t64[0]:.4f} ms "
           f"device, {t64[1]:.4f} ms per call, bound {b64[0]:.5f} ms by {b64[1]} (ratio {t64[0] / b64[0]:.1f})")
-    if rows9[-1]["metric"] != bench.HEADLINE or len(rows9) != 15:
+    if rows9[-1]["metric"] != bench.HEADLINE or len(rows9) != 17:
         _fail(f"bench emitted {[r['metric'] for r in rows9]}")
     print(f"[bench] {len(rows9)} rows at B = {B} (bench.main {' '.join(bench_args)}), launches {launches}, "
           f"{first_s:.1f} s:")
@@ -1513,6 +1673,10 @@ def main() -> int:
     print(f"[bench] phase 9: {time.perf_counter() - t9:.1f} s")
 
     stamp("bench")
+
+    # ---- 10. prove: the Fr polynomial kernels, keygen and prove on the card ------
+    prove_phase(dev, rng, results, record, counters, counted, _times, _plain, stamp)
+
     report_refusals("the rest of the run")
     print(f"[timer] device_ms's windows open with {WINDOW['fillers']} filler kernels (raised {WINDOW['raised']} "
           f"times, {len(WINDOW['refused'])} windows refused)")
@@ -1521,7 +1685,7 @@ def main() -> int:
     print(f"[health] Xid: {xid}")
     print(json.dumps({"kernels": [results[n] for n in (
         "transcript", "pow_fr", "pow_fp", "msm", "pairing", "decompress", "subgroup", "mont_mul", "int8_dot",
-        "int8_chain", "bf16_chain")]}))
+        "int8_chain", "bf16_chain") + POLY_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -31,10 +31,15 @@ or ``all``; by default the rows ``bench.py`` always runs):
   rlc        the RLC sweep at groups 8, 16 and 32, each that divides the
              batch (bench.py:338-352);
   atms, atms_with_lookups, atms_228_408   the committed ATMS sets, the
-             last at k = 22 under the JAX name of that scale.
-The JAX bench proves an ATMS circuit at 50/90 at run time
-(bench.py:317-336); the port never proves, and no 50/90 set is committed,
-so that row has no counterpart here.
+             last at k = 22 under the JAX name of that scale;
+  atms_50_90, atms_with_lookups_50_90   the ATMS pair at the reference's
+             benchmark scale, 90 parties and threshold 50 (k = 20), under
+             the JAX names of that scale (bench.py:273-336): the committed
+             sets (``plutus_halo2_tpu_torch/artifacts/``) where they are
+             there, else proved in-process first by the port's prover with
+             the ATMS example's defaults (``examples/atms.prove_set``: the
+             same bytes), which takes minutes of host Python. Neither is a
+             default row.
 
 Inputs: each set's committed honest proof tiled to the batch; the corrupted
 copy flips bit 6 of byte 100 of row 1 (bench.py:92-93), so every row's
@@ -78,14 +83,14 @@ from .ops import curve as tc
 from .ops.limb import FR_SPEC
 from .refimpl import curve as rc
 from .refimpl.field import Q
-from .utils.artifacts import load_set
+from .utils.artifacts import has_set, load_set
 from .utils.profiling import card_line
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "chiprun_out" / "bench_details.json"
 HEADLINE = "simple_mul_halo2_verifications_per_sec_per_chip"
 ROWS = ("headline", "exact", "msm", "hintless", "strict", "off", "r2", "gwc", "lookup", "rlc", "atms",
-        "atms_with_lookups", "atms_228_408")
+        "atms_with_lookups", "atms_228_408", "atms_50_90", "atms_with_lookups_50_90")
 DEFAULT_ROWS = ("headline", "exact", "msm")
 BAD_ROW, BAD_BYTE = 1, 100
 MSM_K = 64
@@ -127,12 +132,28 @@ def _time_pipelined(fn, iters: int, device) -> float:
     return (time.perf_counter() - t0) / iters
 
 
+def atms_set(name: str, device):
+    """(plan, proof, inputs) of an ATMS set at 90 parties and threshold 50:
+    the committed one, else proved here with the example's defaults."""
+    if has_set(name):
+        plan, proof, _invalid, inputs = load_set(name)
+        return plan, proof, inputs
+    from .examples.atms import prove_set
+
+    print(f"# {name}: no committed set; proving it in-process", file=sys.stderr)
+    made = prove_set(90, 50, name.startswith("atms_with_lookups"), device=device)
+    return made["plan"], made["proof"], made["inputs"]
+
+
 def bench_circuit(name: str, metric: str, batch: int, iters: int, device, y_hints: bool = True,
                   rlc_group: int | None = None, subgroup: str = "aggregate",
-                  subgroup_rounds: int | None = None) -> dict:
-    """One verification row of the committed set `name` (bench.py's
-    ``_bench_circuit`` on a prebuilt set)."""
-    plan, proof, _invalid, inputs = load_set(name)
+                  subgroup_rounds: int | None = None, prebuilt=None) -> dict:
+    """One verification row of the committed set `name`, or of `prebuilt`
+    (plan, proof, inputs) (bench.py's ``_bench_circuit``)."""
+    if prebuilt is None:
+        plan, proof, _invalid, inputs = load_set(name)
+    else:
+        plan, proof, inputs = prebuilt
     proofs = np.stack([np.frombuffer(proof, np.uint8)] * batch)
     proofs_bad = proofs.copy()
     proofs_bad[BAD_ROW, BAD_BYTE] ^= 0x40
@@ -307,6 +328,10 @@ def main(argv=None) -> list[dict]:
     ):
         if key in want:
             emit(bench_circuit(name, metric, batch, iters, device, **kw))
+    for key in ("atms_50_90", "atms_with_lookups_50_90"):
+        if key in want:
+            emit(bench_circuit(key, f"{key}_halo2_verifications_per_sec_per_chip", batch, iters, device,
+                               prebuilt=atms_set(key, device)))
     if "rlc" in want:
         for g in (8, 16, 32):
             if batch % g == 0:

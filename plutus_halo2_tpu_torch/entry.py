@@ -4,10 +4,9 @@
 (simple_mul, halo2-book KZG, the default hintless aggregate subgroup test)
 with its example arguments; ``dryrun_multichip(n)`` runs the reference's
 three multi-device legs over ``parallel/mesh.py``. Both build from the
-committed simple_mul set (``utils/artifacts.load_set``): the port never
-proves, so nothing here calls ``keygen`` or ``prove`` as the reference's
-``_build`` does. Both run on the card unless the caller asks for the CPU
-(``device="cpu"``), and raise without one.
+committed simple_mul set (``utils/artifacts.load_set``), where the
+reference's ``_build`` proves at run time. Both run on the card unless
+the caller asks for the CPU (``device="cpu"``), and raise without one.
 
     python3 -m plutus_halo2_tpu_torch.entry [--cpu]
 """

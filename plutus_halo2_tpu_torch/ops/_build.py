@@ -30,12 +30,13 @@ from .curve import BETA
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
-           "subgroup.cu", "mma_probe.cu", "mma_chain.cu")
+           "subgroup.cu", "mma_probe.cu", "mma_chain.cu", "poly.cu")
 HEADERS = ("field.cuh", "lanes.cuh", "curve.cuh", "group.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 # C entry points: (argtypes); every one returns cudaGetLastError() as int
 SIGNATURES = {
     "ph2_mont_mul_fp": (_P, _P, _P, _I, _I, _P),
@@ -52,6 +53,10 @@ SIGNATURES = {
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
     "ph2_mma_int8_chain": (_P, _P, _P, _I, _I, _P),
     "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _I, _P),
+    "ph2_fr_ntt": (_P, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P),
+    "ph2_fr_mul_array": (_P, _P, _P, _L, _P),
+    "ph2_fr_scale_array": (_P, _P, _P, _L, _P),
+    "ph2_fr_powers_mul_array": (_P, _P, _L, _P, _I, _I, _P, _P, _P),
 }
 
 
@@ -77,8 +82,9 @@ def field_consts_header() -> str:
     hinted decompression (R^2 mod p, b = 4, (p + 1) / 2 as plain words) and
     the cube root of unity beta of the subgroup test; R^3 mod p (plain
     words), which turns the pairing kernel's Euclidean inverse into the
-    Montgomery domain, and the pairing kernel's row layout, program ids and
-    slot-reference bases."""
+    Montgomery domain; R^2 mod q (plain words), the poly kernels' second
+    factor in a product of two canonical arrays; and the pairing kernel's
+    row layout, program ids and slot-reference bases."""
     out = ["// generated by plutus_halo2_tpu_torch/ops/_build.py — do not edit\n",
            "#pragma once\n#include <cstdint>\n"]
     for name, mod, nw, l16 in (("FP", P, 12, 25), ("FR", Q, 8, 17)):
@@ -95,6 +101,7 @@ def field_consts_header() -> str:
     out.append(_arr("FP_HALF", words((P + 1) >> 1, 12)))
     out.append(_arr("FP_BETA", kernel_fp(BETA)))
     out.append(_arr("FP_R3", words(pow(2, 3 * 384, P), 12)))
+    out.append(_arr("FR_R2K", words(pow(2, 512, Q), 8)))
     out.append(f"static constexpr uint64_t BLS_X_ABS = 0x{BLS_X:016x}ull;\n")
     out.append(pairing_program.kernel_header())
     return "".join(out)

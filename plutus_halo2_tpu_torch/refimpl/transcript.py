@@ -1,5 +1,6 @@
 """Cardano-friendly Blake2b-256 Fiat-Shamir transcript (executable spec): the
-port's copy of the verifier side of ``plutus_halo2_tpu/refimpl/transcript.py``.
+port's copy of ``plutus_halo2_tpu/refimpl/transcript.py``: the verifier's
+``Transcript`` and the prover's ``ProverTranscript``.
 
 Bit-exact reimplementation of the reference's transcript semantics, defined in
 three equivalent places:
@@ -21,7 +22,7 @@ from __future__ import annotations
 import hashlib
 
 from .field import Q, fr_from_le_bytes, fr_to_le_bytes
-from .curve import g1_decompress
+from .curve import g1_compress, g1_decompress
 
 PREFIX_CHALLENGE = b"\x00"
 PREFIX_COMMON = b"\x01"
@@ -74,3 +75,38 @@ class Transcript:
         self.acc += PREFIX_CHALLENGE
         return (int.from_bytes(h1, "little") + (int.from_bytes(h2, "little") << 256)) % Q
 
+
+
+class ProverTranscript:
+    """Prover-side transcript: writes proof bytes while absorbing them,
+    with identical challenge derivation. Role of the Rust
+    `CircuitTranscript<CardanoFriendlyBlake2b>` used by the reference examples
+    (examples/simple_mul.rs:100-108)."""
+
+    def __init__(self, transcript_repr: int):
+        self.acc = bytearray()
+        self.proof = bytearray()
+        self.common_scalar(transcript_repr)
+
+    def common_scalar(self, s: int):
+        self.acc += PREFIX_COMMON + fr_to_le_bytes(s)
+
+    def write_scalar(self, s: int):
+        raw = fr_to_le_bytes(s)
+        self.proof += raw
+        self.acc += PREFIX_COMMON + raw
+
+    def write_point(self, p):
+        raw = g1_compress(p)
+        self.proof += raw
+        self.acc += PREFIX_COMMON + raw
+
+    def squeeze_challenge(self) -> int:
+        data = bytes(self.acc) + PREFIX_CHALLENGE
+        h1 = blake2b_256(data)
+        h2 = blake2b_256(h1)
+        self.acc += PREFIX_CHALLENGE
+        return (int.from_bytes(h1, "little") + (int.from_bytes(h2, "little") << 256)) % Q
+
+    def finalize(self) -> bytes:
+        return bytes(self.proof)

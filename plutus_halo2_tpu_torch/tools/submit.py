@@ -4,8 +4,9 @@
 serialized_public_input.hex, tags the submission with
 blake2b_256(proof ∥ inputs), submits it and polls.
 
-The JAX tool proves at run time; the port verifies and never proves, so
-this one reads a committed artifact set (``utils/artifacts.py``):
+The JAX tool proves at run time; this one reads a committed artifact set
+(``utils/artifacts.py``), the bytes the port's prover makes from the same
+defaults:
 ``--circuit`` names it, and ``--flavor gwc19`` takes simple_mul's GWC19 set.
 Every third submission is a tampered proof. For each submission it prints
 the tag and the verdict, at the end the dispatch count and the device. Runs

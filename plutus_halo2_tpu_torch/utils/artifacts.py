@@ -1,7 +1,10 @@
 """The committed artifact sets the port verifies: simple_mul, lookup_table,
 atms, atms_with_lookups and atms_228_408 (halo2-book KZG, the JAX
-package's ``examples/artifacts/``) and simple_mul's GWC19 set (the port's
-own, ``plutus_halo2_tpu_torch/artifacts/``). Each set is a proof, its
+package's ``examples/artifacts/``), simple_mul's GWC19 set and the ATMS
+pair at 90 parties and threshold 50 (the port's own,
+``plutus_halo2_tpu_torch/artifacts/``; the last two made by
+``python3 -m plutus_halo2_tpu_torch.examples.atms --parties 90
+--threshold 50 [--lookups]``). Each set is a proof, its
 invalid twin, the public inputs and the VK, as the reference's
 proof_serialization.rs writes them (``utils/serialization.py``); the plan
 is rebuilt from the VK and the circuit's structure (``plan_from_vk``), so
@@ -30,6 +33,8 @@ SETS = {  # name -> (directory, circuit factory, flavor)
     "atms": (EXAMPLES, lambda: AtmsCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
     "atms_with_lookups": (EXAMPLES, lambda: AtmsLookupCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
     "atms_228_408": (EXAMPLES, lambda: AtmsCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
+    "atms_50_90": (PORT, lambda: AtmsCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
+    "atms_with_lookups_50_90": (PORT, lambda: AtmsLookupCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
 }
 
 # the files of a set, by suffix; proof.json (serialize_proof) where committed
@@ -45,6 +50,12 @@ def read_set(name: str) -> dict:
         if path.exists():
             out[suffix] = path.read_text()
     return out
+
+
+def has_set(name: str) -> bool:
+    """Whether the set's proof, invalid twin, public inputs and VK are committed."""
+    directory = SETS[name][0]
+    return all((directory / f"{name}_{suffix}").exists() for suffix in FILES[:4])
 
 
 def load_set(name: str):

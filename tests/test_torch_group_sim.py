@@ -2,7 +2,8 @@
 csrc/decompress.cu and csrc/subgroup.cu over csrc/group.cuh; csrc/pow.cu
 over csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16 and
 int8 chains, csrc/mma_chain.cu; the Montgomery-product test kernel,
-csrc/field_test.cu) run on the CPU: their sources compiled by g++ through
+csrc/field_test.cu; the prover's Fr polynomial kernels, csrc/poly.cu) run
+on the CPU: their sources compiled by g++ through
 a small CUDA shim and run with one thread per lane, __syncwarp a barrier
 of the lane's group, __syncthreads one of the block, a shuffle or a ballot
 an exchange through the group's slots between two such barriers (a 64-bit
@@ -26,7 +27,12 @@ staged in shared memory and read from global memory; both chains with
 cuda_mma.chain_plain at ragged batch widths and 0, 1 and 7 steps; the
 Montgomery-product kernel with cuda_field.mont_mul_plain for both fields
 at ragged counts, one and several blocks, the slabs 0 or 8 bytes past a
-16-byte boundary; the mma emulations themselves with a numpy product.
+16-byte boundary; the poly kernels through their host entry points
+(ph2_fr_ntt and the three elementwise ones, each launch a grid of CPU
+threads at the launch's own geometry: bit reversal, powers tables,
+twiddles, one launch a stage) word for word with ops/poly.py's plain
+versions at sizes from 1 to 2^12 and ragged lengths; the mma emulations
+themselves with a numpy product.
 This checks the kernels' scheduling and arithmetic (units over lanes,
 batches, barriers, shuffles and carry lookaheads, shared-memory layout),
 not the card's compiler; needs g++ with C++20."""
@@ -42,7 +48,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma  # noqa: E402
+from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_poly  # noqa: E402
+from plutus_halo2_tpu_torch.ops import poly as tpoly  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, window_digits  # noqa: E402
 from plutus_halo2_tpu_torch.refimpl import curve as rc  # noqa: E402
@@ -91,6 +98,11 @@ inline float __int2float_rn(int v) { return (float)v; }
 inline int __float2int_rz(float v) { return (int)v; }
 inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+inline unsigned __brev(unsigned x) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; i++) r |= ((x >> i) & 1u) << (31 - i);
+  return r;
+}
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
   const unsigned long long v = (unsigned long long)y << 32 | x;
   unsigned r = 0;
@@ -202,6 +214,9 @@ alignas(16) uint32_t smem[1 << 16];
 #include "blake2b.cu"
 #include "mma_chain.cu"
 #include "field_test.cu"
+// poly.cu's launches, each a grid of CPU threads (defined below run_grid)
+template <class F> void sim_launch(unsigned blocks, int threads, F body);
+#include "poly.cu"
 
 template <class T> std::vector<T> readf(const char* path, size_t n) {
   std::vector<T> v(n);
@@ -240,6 +255,8 @@ template <class F> void run_grid(int blocks, int threads, int width, F body) {
     for (auto& t : ts) t.join();
   }
 }
+
+template <class F> void sim_launch(unsigned blocks, int threads, F body) { run_grid((int)blocks, threads, 32, body); }
 
 // blocks of `rows` rows of `lanes` lanes
 template <class F> void run_blocks(int B, int lanes, int rows, F body) {
@@ -343,6 +360,28 @@ int main(int argc, char** argv) {
     writef("acc.bin", acc);
     return 0;
   }
+  if (argv[1][0] == 'n' || argv[1][0] == 'e') {  // n, slo, shi; n: lg; e: the op (0 mul, 1 scale, 2 powers)
+    const int64_t n = atoll(argv[2]);
+    const int slo = atoi(argv[3]), shi = atoi(argv[4]), x = atoi(argv[5]);
+    auto a = readf<uint32_t>("a.bin", (size_t)n * 8);
+    auto bp = readf<uint32_t>("bp.bin", (size_t)std::max(slo + shi, 1) * 8);
+    std::vector<uint32_t> out((size_t)n * 8, 0xdeadbeefu), lo((size_t)8 << slo), hi((size_t)8 << shi);
+    std::vector<uint32_t> tw((size_t)std::max<int64_t>(n / 2, 1) * 8);
+    int rc;
+    if (argv[1][0] == 'n') {
+      rc = ph2_fr_ntt(a.data(), out.data(), n, x, bp.data(), slo, shi, lo.data(), hi.data(), tw.data(), nullptr);
+    } else if (x == 0) {
+      auto b = readf<uint32_t>("b.bin", (size_t)n * 8);
+      rc = ph2_fr_mul_array(a.data(), b.data(), out.data(), n, nullptr);
+    } else if (x == 1) {
+      rc = ph2_fr_scale_array(a.data(), bp.data(), out.data(), n, nullptr);
+    } else {
+      rc = ph2_fr_powers_mul_array(a.data(), out.data(), n, bp.data(), slo, shi, lo.data(), hi.data(), nullptr);
+    }
+    if (rc) return 5;
+    writef("out.bin", out);
+    return 0;
+  }
   const int B = atoi(argv[2]), K = atoi(argv[3]), X = atoi(argv[4]), lanes = atoi(argv[5]), rows = 2;
   if (argv[1][0] == 'm') {  // X: the window width
     auto pts = readf<int64_t>("pts.bin", (size_t)B * K * 75);
@@ -404,6 +443,9 @@ def sim(tmp_path_factory):
         if name in ("group.cuh", "field_test.cu"):
             text = text.replace("fp_add_cc(", "f_add<FpT>(").replace("fp_sub_cc(", "f_sub<FpT>(")
             text = text.replace("fp_mul_cc(", "f_mul<FpT>(")
+        if name == "poly.cu":  # its host entry points run: each launch a grid of CPU threads
+            text = re.sub(r"(\w+)<<<(.*?), (\w+), 0, [^;]*?>>>\((.*?)\);", r"sim_launch(\2, \3, [&] { \1(\4); });",
+                          text, flags=re.S)
         text = re.sub(r"<<<[^;]*?>>>", "", text, flags=re.S)  # launches: the harness calls the kernels
         (work / name).write_text(text)
     (work / "field_consts.cuh").write_text(_build.field_consts_header())
@@ -716,3 +758,59 @@ def test_mma_s8_emulation_against_numpy(sim, K):
         g, q = lane >> 2, lane & 3
         got[g, 2 * q : 2 * q + 2], got[g + 8, 2 * q : 2 * q + 2] = d[lane, :2], d[lane, 2:]
     assert np.array_equal(got, A @ Bm + C)
+
+
+def _poly_words(n, seed):
+    from plutus_halo2_tpu_torch.refimpl.field import Q
+
+    rng = np.random.default_rng(seed)
+    vals = [Q - 1, 0, 1] + [int.from_bytes(rng.bytes(32), "little") % Q for _ in range(max(n - 3, 0))]
+    return tpoly.to_words(vals[:n], "cpu")
+
+
+def _u32(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("lg", [0, 1, 2, 3, 5, 8, 12])
+def test_poly_ntt_on_cpu_threads(sim, lg):
+    """ph2_fr_ntt's launches (bit reversal over lg bits, the powers tables
+    of omega split at slo, the twiddle table, a launch a stage with
+    i0 = (t >> s) << (s + 1) | j and the twiddle at j << (lg - 1 - s)) word
+    for word against the plain NTT, with the wrapper's own table split."""
+    from plutus_halo2_tpu_torch.refimpl.poly import domain_omega
+
+    n, w = 1 << lg, domain_omega(lg)
+    a = _poly_words(n, lg)
+    slo, shi = cuda_poly._split(max(lg - 1, 0))
+    _u32(a).tofile(sim / "a.bin")
+    _u32(cuda_poly._bit_powers(w, slo + shi, "cpu")).tofile(sim / "bp.bin")
+    _run(sim, "n", n, slo, shi, lg)
+    got = np.fromfile(sim / "out.bin", np.uint32).reshape(n, 8)
+    assert np.array_equal(got, _u32(tpoly.ntt_plain(a, w)))
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 257, 1000])
+@pytest.mark.parametrize("op", ["mul", "scale", "powers_mul"])
+def test_poly_elementwise_on_cpu_threads(sim, op, n):
+    from plutus_halo2_tpu_torch.refimpl.field import Q
+
+    a, b = _poly_words(n, n), _poly_words(n, n + 1).flip(0).contiguous()
+    k = 0xC0FFEE ** 9 % Q
+    _u32(a).tofile(sim / "a.bin")
+    if op == "mul":
+        _u32(b).tofile(sim / "b.bin")
+        np.zeros(8, np.uint32).tofile(sim / "bp.bin")
+        _run(sim, "e", n, 0, 0, 0)
+        want = tpoly.mul_array_plain(a, b)
+    elif op == "scale":
+        _u32(cuda_poly._bit_powers(k, 1, "cpu")).tofile(sim / "bp.bin")  # k R mod q
+        _run(sim, "e", n, 0, 0, 1)
+        want = tpoly.scale_array_plain(a, k)
+    else:
+        slo, shi = cuda_poly._split(max(n - 1, 0).bit_length())
+        _u32(cuda_poly._bit_powers(k, slo + shi, "cpu")).tofile(sim / "bp.bin")
+        _run(sim, "e", n, slo, shi, 2)
+        want = tpoly.powers_mul_array_plain(a, k)
+    got = np.fromfile(sim / "out.bin", np.uint32).reshape(n, 8)
+    assert np.array_equal(got, _u32(want))

@@ -48,7 +48,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad == "[]"
     for mod in ("refimpl.transcript", "refimpl.lagrange", "refimpl.multiopen", "refimpl.pairing",
                 "refimpl.verifier", "utils.tracing", "utils.serialization", "utils.artifacts",
-                "parallel.mesh", "tools.submit", "tools.multihost_smoke", "bench", "entry"):
+                "parallel.mesh", "tools.submit", "tools.multihost_smoke", "bench", "entry",
+                "refimpl.poly", "refimpl.srs", "refimpl.keygen", "refimpl.prover", "refimpl.jubjub",
+                "refimpl.rescue", "ops.poly", "ops.cuda_poly", "examples.simple_mul", "examples.lookup_table",
+                "examples.atms", "examples.equations_test"):
         assert f"plutus_halo2_tpu_torch.{mod}" in names.split(), mod
 
 

@@ -7,7 +7,9 @@ rows whose points all decode, against the plain version of the kernels'
 decomposition and the JAX package's algorithm; the pow kernel on 0, 1 and
 N - 1; every lane-group width; the tensor-core probe kernels bit for bit), the point-sharded
 MSM (parallel/mesh.shard_map_msm) on a virtual mesh of the card against the unsharded kernel,
-and the verifier's modes and verify_rlc on the card against the CPU.
+the verifier's modes and verify_rlc on the card against the CPU, and the
+prover's four Fr polynomial kernels (csrc/poly.cu) at ragged sizes, word
+for word against their plain versions.
 
 These need a CUDA device and nvcc (sm_90a) and skip without them; run them
 on the GPU machine with ``python -m pytest tests/test_torch_kernels.py -m gpu
@@ -24,6 +26,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from plutus_halo2_tpu_torch.ops import cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_pairing  # noqa: E402
+from plutus_halo2_tpu_torch.ops import cuda_poly  # noqa: E402
+from plutus_halo2_tpu_torch.ops import poly as tpoly  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops import pairing as tp  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC  # noqa: E402
@@ -609,3 +613,59 @@ def test_first_launch_in_fresh_processes(dev):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode == 0, out.stderr[-2000:]
         assert out.stdout.strip().splitlines()[-1] == "[0, 0]"
+
+
+def _fr_words(n, seed, dev):
+    """(n, 8) canonical words: 0, 1 and q - 1 first, then random values."""
+    from plutus_halo2_tpu_torch.refimpl.field import Q
+
+    rng = np.random.default_rng(seed)
+    vals = [0, 1, Q - 1] + [int.from_bytes(rng.bytes(32), "little") % Q for _ in range(max(n - 3, 0))]
+    return tpoly.to_words(vals[:n], dev)
+
+
+@pytest.mark.parametrize("lg", [0, 1, 2, 3, 7, 10, 13, 17])
+def test_poly_ntt_kernel(dev, lg):
+    """fr_ntt against the plain NTT at 2^lg points, and the inverse
+    transform of its omega^-1 call, scaled by n^-1, gives the input back."""
+    from plutus_halo2_tpu_torch.refimpl.field import fr_inv
+    from plutus_halo2_tpu_torch.refimpl.poly import domain_omega
+
+    n, w = 1 << lg, domain_omega(lg)
+    a = _fr_words(n, lg, dev)
+    got = cuda_poly.fr_ntt(a, w)
+    assert torch.equal(got, tpoly.ntt_plain(a.cpu(), w).to(dev))
+    back = cuda_poly.fr_scale_array(cuda_poly.fr_ntt(got, fr_inv(w)), fr_inv(n))
+    assert torch.equal(back, a)
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 128, 129, 1000, 4097])
+def test_poly_elementwise_kernels(dev, n):
+    """fr_mul_array, fr_scale_array and fr_powers_mul_array against their
+    plain versions at ragged lengths (the powers past one table of each
+    half), k = 0, 1, q - 1 and a random k."""
+    from plutus_halo2_tpu_torch.refimpl.field import Q
+
+    a, b = _fr_words(n, 1, dev), _fr_words(n, 2, dev).flip(0).contiguous()
+    assert torch.equal(cuda_poly.fr_mul_array(a, b), tpoly.mul_array_plain(a.cpu(), b.cpu()).to(dev))
+    for k in (0, 1, Q - 1, 0x1234567890ABCDEF1234567890ABCDEF % Q):
+        assert torch.equal(cuda_poly.fr_scale_array(a, k), tpoly.scale_array_plain(a.cpu(), k).to(dev))
+        assert torch.equal(cuda_poly.fr_powers_mul_array(a, k), tpoly.powers_mul_array_plain(a.cpu(), k).to(dev))
+
+
+def test_poly_kernels_count_and_refuse(dev):
+    """Each wrapper counts its launches; a wrong shape or dtype raises."""
+    a = _fr_words(256, 3, dev)
+    before = (cuda_poly.fr_ntt.launches, cuda_poly.fr_mul_array.launches, cuda_poly.fr_scale_array.launches,
+              cuda_poly.fr_powers_mul_array.launches)
+    cuda_poly.fr_ntt(a, 1)
+    cuda_poly.fr_mul_array(a, a)
+    cuda_poly.fr_scale_array(a, 3)
+    cuda_poly.fr_powers_mul_array(a, 3)
+    after = (cuda_poly.fr_ntt.launches, cuda_poly.fr_mul_array.launches, cuda_poly.fr_scale_array.launches,
+             cuda_poly.fr_powers_mul_array.launches)
+    assert [y - x for x, y in zip(before, after)] == [1, 1, 1, 1]
+    with pytest.raises(ValueError):
+        cuda_poly.fr_ntt(a[:255].contiguous(), 1)
+    with pytest.raises(ValueError):
+        cuda_poly.fr_mul_array(a, a.to(torch.int64))

@@ -53,6 +53,8 @@ J_CIRCUITS = {
     "atms": lambda: j_atms.AtmsCircuit(*_ATMS2),
     "atms_with_lookups": lambda: j_atms.AtmsLookupCircuit(*_ATMS2),
     "atms_228_408": lambda: j_atms.AtmsCircuit([(0, 1)] * 408, [None] * 408, 0, 228),
+    "atms_50_90": lambda: j_atms.AtmsCircuit(*_ATMS2),
+    "atms_with_lookups_50_90": lambda: j_atms.AtmsLookupCircuit(*_ATMS2),
 }
 
 
