@@ -5,7 +5,8 @@
 
 Drives the port's main path — ``TorchVerifier.verify()`` of the simple_mul
 circuit (halo2-book KZG) in its default mode (y-hints, the aggregate
-subgroup test fused into hinted decompression), the modes beside it,
+subgroup test fused into hinted decompression; on the card a captured CUDA
+graph per key), the modes beside it,
 ``verify_rlc`` and the serving loop, at the headline batch B = 1024 — the
 GWC19 flavor and the lookup and ATMS circuits, and the probe path (the
 tensor-core probe and the stage probe) through their hand-written CUDA
@@ -67,8 +68,11 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      verify_rlc on an honest batch, (e') with one corrupted hint. Each path's
      verdicts must equal its expected vector, and each path must launch
      every kernel it runs (counts set to 0 before the path, read after it;
-     the "launches" of the kernels line sum these first calls); paths (a),
-     (b) and (e) are then timed, wall and stages, over three more calls;
+     the "launches" of the kernels line sum these first calls); each RLC
+     path launches the re-check's pairing, gated on the device by its
+     suspect count, which must be non-zero on (d) and zero on (e), (e');
+     paths (a), (b) and (e) are then timed, wall and stages, over three
+     more calls in the eager form (the stages' CUDA events need it);
   5b. the circuits, each on B = 1024 rows: the committed set's honest
      proof, its invalid twin every 8th row, a corrupted proof scalar and,
      on an honest row, a corrupted y-hint (``circuit_batch``,
@@ -84,6 +88,18 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      (g), (i), (j), (k) are timed as (a); then a
      VerificationService (batch 256, RLC group 8) answers 298 GWC19
      submissions;
+  5c. programs: ``verify()`` and ``verify_rlc_device()`` run on the card as
+     captured CUDA graphs (``models/programs.py``); on paths (a), (b),
+     (c), strict (``subgroup_check="exact"``), (d), (e), (e'), (f), (g),
+     (i), (j), (k) each program is replayed on alternating batches (the
+     path's own, another, its own again), each call beside the eager form
+     (``graphs`` off for the call) on the same batch and weights: the
+     verdicts equal each other and the expected vector, the launches
+     (counted through the replay accounting) equal the eager call's; the
+     pairing kernel at enable 1 and 0 against its plain version at the
+     re-check's 128 rows; the walls of (a), (b), (e), (f) and (j), eager
+     and graph alternating, three calls each, medians side by side; each
+     program's pool bytes;
   6. serving: a VerificationService (batch 1024, RLC group 8) answers 1100
      submissions, one full and one padded batch, and every future must
      resolve to its expected verdict;
@@ -118,7 +134,8 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      its own results, the verifyh stage traced into ``chiprun_out/``; every
      kernel must launch;
   8. trace: one default-mode ``verify()`` at B = 1024 under
-     ``torch.profiler``, and the share of it in which the card was busy;
+     ``torch.profiler``, in the graph form and in the eager form, and the
+     share of each in which the card was busy;
   9. bench: ``entry.entry()``'s step (its verdicts), ``entry.dryrun_multichip(4)``
      on the virtual mesh (all three legs, none skipped), and the port's bench
      (``plutus_halo2_tpu_torch.bench.main``) at B = 1024 with every row, its
@@ -1207,7 +1224,8 @@ def main() -> int:
              lambda: default.verify(proof_t, pis_t, hints_t, gen), hinted, base + ("decompress",))
     default.timings = {}
     wall = timed(lambda: default.verify(proof_t, pis_t, hints_t, gen))
-    print(f"[path] a: {B / wall:.1f} proofs/s (median of 3 verify() calls: {wall * 1e3:.1f} ms per batch)")
+    print(f"[path] a: {B / wall:.1f} proofs/s (median of 3 verify() calls, eager with its stages timed: "
+          f"{wall * 1e3:.1f} ms per batch)")
     stage_table("a", default, wall)
     default.timings = None
 
@@ -1216,7 +1234,8 @@ def main() -> int:
              base + ("pow_fp", "subgroup"))
     default.timings = {}
     wall_b = timed(lambda: default.verify(proof_t, pis_t, None, gen))
-    print(f"[path] b: {B / wall_b:.1f} proofs/s (median of 3 verify() calls: {wall_b * 1e3:.1f} ms per batch)")
+    print(f"[path] b: {B / wall_b:.1f} proofs/s (median of 3 verify() calls, eager with its stages timed: "
+          f"{wall_b * 1e3:.1f} ms per batch)")
     stage_table("b", default, wall_b)
     default.timings = None
     # (c) the hintless mode with the subgroup test off
@@ -1233,31 +1252,45 @@ def main() -> int:
 
     # (d) verify_rlc on the mixed batch: failing groups, re-checked rows
     rlc_needs = base + ("decompress",)
-    launches_d = run_path("d verify_rlc group 8, mixed", lambda: default.verify_rlc(
-        proof_t, pis_t, hints_t, group=8, generator=gen), hinted, rlc_needs)
-    if launches_d["pairing"] < 2:
-        _fail("path d did not re-check its failing group")
+    suspects = []
+
+    def rlc(v, proof_b, pis_b, hints_b, generator=gen):
+        """verify_rlc's two legs, the suspect count kept: the re-check's
+        pairing launches on every call, gated on the device by that count."""
+        def run():
+            out = v.verify_rlc_device(proof_b, pis_b, v.rlc_weights(proof_b.shape[0], generator), hints_b,
+                                      group=8, generator=generator)
+            suspects.append(int(out[1]))
+            return v.rlc_finalize(*out)
+        return run
+
+    def check_gate(label, launches, dirty: bool):
+        if (suspects[-1] > 0) != dirty or launches["pairing"] < 2:
+            _fail(f"path {label}: {suspects[-1]} suspects, {launches['pairing']} pairing launches")
+
+    launches_d = run_path("d verify_rlc group 8, mixed", rlc(default, proof_t, pis_t, hints_t), hinted, rlc_needs)
+    check_gate("d", launches_d, True)
     if default.msm_term_counts != [16, 8]:  # the multi-open MSM, then the RLC aggregation
         _fail(f"path d ran MSMs of K = {default.msm_term_counts}, expected [16, 8]")
-    # (e) an honest batch: no re-check; (e') one corrupted hint
+    # (e) an honest batch: the re-check gated off on the device; (e') one
+    # corrupted hint
     honest_t = torch.from_numpy(np.stack([proof_h] * B)).to(dev)
     honest_hints = torch.from_numpy(verifier.compute_y_hints(np.stack([proof_h] * B))).to(dev)
-    launches_e = run_path("e verify_rlc group 8, honest", lambda: default.verify_rlc(
-        honest_t, pis_t, honest_hints, group=8, generator=gen), np.ones(B, bool), rlc_needs)
-    if launches_e["pairing"] != 1:
-        _fail("path e re-checked rows of an honest batch")
+    launches_e = run_path("e verify_rlc group 8, honest", rlc(default, honest_t, pis_t, honest_hints),
+                          np.ones(B, bool), rlc_needs)
+    check_gate("e", launches_e, False)
     default.timings = {}
     wall_e = timed(lambda: default.verify_rlc(honest_t, pis_t, honest_hints, group=8, generator=gen))
-    print(f"[path] e: {B / wall_e:.1f} proofs/s (median of 3 verify_rlc() calls: {wall_e * 1e3:.1f} ms "
-          f"per batch)")
+    print(f"[path] e: {B / wall_e:.1f} proofs/s (median of 3 verify_rlc() calls, eager with its stages timed: "
+          f"{wall_e * 1e3:.1f} ms per batch)")
     stage_table("e", default, wall_e)
     default.timings = None
     bad_hint = honest_hints.clone()
     bad_hint[B - 3, 0, 0] ^= 1
     want_e2 = np.ones(B, bool)
     want_e2[B - 3] = False
-    run_path("e' verify_rlc group 8, one corrupted hint", lambda: default.verify_rlc(
-        honest_t, pis_t, bad_hint, group=8, generator=gen), want_e2, rlc_needs)
+    check_gate("e'", run_path("e' verify_rlc group 8, one corrupted hint", rlc(default, honest_t, pis_t, bad_hint),
+                              want_e2, rlc_needs), False)
 
     stamp("paths (a)-(e')")
     from plutus_halo2_tpu_torch.serving import ProofBundle, VerificationService
@@ -1316,7 +1349,8 @@ def main() -> int:
 
             def keep(*args, _orig=getattr(reals[mod_name], attr), _n=n):
                 out = _orig(*args)
-                kept.append((_n, args, out))
+                if not torch.cuda.is_current_stream_capturing():  # a capture computes nothing yet
+                    kept.append((_n, args, out))
                 return out
             setattr(getattr(verifier_torch, mod_name), attr, keep)
         try:
@@ -1342,7 +1376,8 @@ def main() -> int:
     def timed_path(label, v_s, fn):
         v_s.timings = {}
         wall_p = timed(fn)
-        print(f"[path] {label}: {B / wall_p:.1f} proofs/s (median of 3 calls: {wall_p * 1e3:.1f} ms per batch)")
+        print(f"[path] {label}: {B / wall_p:.1f} proofs/s (median of 3 calls, eager with its stages timed: "
+              f"{wall_p * 1e3:.1f} ms per batch)")
         stage_table(label, v_s, wall_p)
         v_s.timings = None
 
@@ -1363,23 +1398,23 @@ def main() -> int:
     timed_path("g", gv, lambda: gv.verify(g_proof, g_pis, None, gen))
     # (h) GWC19 verify_rlc on the mixed batch (failing groups re-checked) and
     # on an honest batch (no re-check)
-    launches_h = run_path("h simple_mul GWC19 verify_rlc group 8, mixed", lambda: gv.verify_rlc(
-        g_proof, g_pis, g_hints, group=8, generator=gen), g_hinted, rlc_needs)
+    launches_h = run_path("h simple_mul GWC19 verify_rlc group 8, mixed", rlc(gv, g_proof, g_pis, g_hints),
+                          g_hinted, rlc_needs)
     check_counts("h", gv, [3, 17, 8])
-    if launches_h["pairing"] < 2:
-        _fail("path h did not re-check its failing groups")
+    check_gate("h", launches_h, True)
     g_honest = torch.from_numpy(np.stack([sets["simple_mul_gwc19"][1]] * B)).to(dev)
     g_honest_hints = torch.from_numpy(gv.compute_y_hints(g_honest.cpu().numpy())).to(dev)
-    launches_h2 = run_path("h' simple_mul GWC19 verify_rlc group 8, honest", lambda: gv.verify_rlc(
-        g_honest, g_pis, g_honest_hints, group=8, generator=gen), np.ones(B, bool), rlc_needs)
+    launches_h2 = run_path("h' simple_mul GWC19 verify_rlc group 8, honest",
+                           rlc(gv, g_honest, g_pis, g_honest_hints), np.ones(B, bool), rlc_needs)
     check_counts("h'", gv, [3, 17, 8])
-    if launches_h2["pairing"] != 1:
-        _fail("path h' re-checked rows of an honest batch")
+    check_gate("h'", launches_h2, False)
     # (i)-(l) the lookup and ATMS circuits in the default mode
+    circuit_paths = {}
     for label, name, want_k, timed_p in (("i", "lookup_table", [19], True), ("j", "atms", [32], True),
                                          ("k", "atms_with_lookups", [36], True),
                                          ("l", "atms_228_408", [32], False)):
-        cv, c_proof, c_pis, c_hints, _c_want, c_hinted = circuit_inputs(name)
+        cv, c_proof, c_pis, c_hints, c_want, c_hinted = circuit_inputs(name)
+        circuit_paths[label] = (cv, c_proof, c_pis, c_hints, c_want, c_hinted, name)
         with keeping("transcript") as kept:
             run_path(f"{label} {name} default (hints, fused aggregate subgroup)",
                      lambda: cv.verify(c_proof, c_pis, c_hints, gen), c_hinted, base + ("decompress",))
@@ -1432,6 +1467,103 @@ def main() -> int:
     serve("simple_mul GWC19", g_plan, bytes(g_good), bytes(g_bad), tuple(g_inputs), B // 4, B // 4 + B // 24)
 
     stamp("circuits phase")
+
+    # ---- 5c. the programs: verify() and verify_rlc_device() as CUDA graphs ------
+    # Each path's program (captured on its first call above, or here) replayed
+    # on alternating batches (the path's own, another, its own again, so that
+    # a stale static buffer shows), each call beside the eager form on the
+    # same batch and weights: verdicts equal to each other and to the
+    # expected vector, launches (the replay's accounting) equal to the eager
+    # call's
+    from plutus_halo2_tpu_torch.ops.pairing import prepare_g2
+    from plutus_halo2_tpu_torch.tools.pairing_probe import S as PROBE_S, check_rows
+
+    t5c = time.perf_counter()
+    strict = TorchVerifier(plan, subgroup_check="exact")
+    honest_np = np.stack([proof_h] * B)
+    H = (honest_t, pis_t, honest_hints, np.ones(B, bool))
+    M = (proof_t, pis_t, hints_t, hinted)
+    M_nh, H_nh = (proof_t, pis_t, None, expected), (honest_t, pis_t, None, np.ones(B, bool))
+    G = (g_proof, g_pis, g_hints, g_hinted)
+    G_h = (g_honest, g_pis, g_honest_hints, np.ones(B, bool))
+    progs = {"a": (default, "verify", (M, H, M)), "b": (default, "verify", (M_nh, H_nh, M_nh)),
+             "c": (verifier, "verify", (M_nh, H_nh, M_nh)), "strict": (strict, "verify", (M, H, M)),
+             "d": (default, "rlc", (M, H, M)), "e": (default, "rlc", (H, M, H)),
+             "e'": (default, "rlc", ((honest_t, pis_t, bad_hint, want_e2), M, (honest_t, pis_t, bad_hint, want_e2))),
+             "f": (gv, "verify", (G, G_h, G)),
+             "g": (gv, "verify", ((g_proof, g_pis, None, g_want), (g_honest, g_pis, None, np.ones(B, bool)),
+                                  (g_proof, g_pis, None, g_want)))}
+    for label in ("i", "j", "k"):
+        cv, c_proof, c_pis, c_hints, _c_want, c_hinted, name = circuit_paths[label]
+        c_honest = np.stack([sets[name][1]] * B)
+        C = (c_proof, c_pis, c_hints, c_hinted)
+        C_h = (torch.from_numpy(c_honest).to(dev), c_pis, torch.from_numpy(cv.compute_y_hints(c_honest)).to(dev),
+               np.ones(B, bool))
+        progs[label] = (cv, "verify", (C, C_h, C))
+
+    def form(v, entry, batch, graphs: bool, seed: int):
+        """One call of the path's entry point in the given form, its weights
+        from `seed` (the same for both forms)."""
+        proof_b, pis_b, hints_b, _want = batch
+        g = torch.Generator().manual_seed(seed)
+        v.graphs = graphs
+        try:
+            if entry == "verify":
+                return v.verify(proof_b, pis_b, hints_b, sub_weights=v.subgroup_weights(g))
+            return rlc(v, proof_b, pis_b, hints_b, g)()
+        finally:
+            v.graphs = True
+
+    for label, (v, entry, batches) in progs.items():
+        for k, batch in enumerate(batches):
+            runs = {}
+            for graphs in (True, False):
+                out, launches, _s = counted(f"5c {label}", lambda: form(v, entry, batch, graphs, SEED + k),
+                                            ("transcript", "pow_fr", "msm", "pairing"))
+                runs[graphs] = (np.asarray(out.cpu() if torch.is_tensor(out) else out), launches)
+            (g_out, g_l), (e_out, e_l) = runs[True], runs[False]
+            if not (np.array_equal(g_out, e_out) and np.array_equal(g_out, batch[3])):
+                _fail(f"programs {label}, batch {k}: the graph form's verdicts differ from the eager form's or "
+                      f"the expected vector at rows {np.nonzero((g_out != e_out) | (g_out != batch[3]))[0][:10]}")
+            if g_l != e_l:
+                _fail(f"programs {label}, batch {k}: graph launches {g_l}, eager {e_l}")
+        print(f"[programs] {label}: {entry} graph == eager == expected on 3 alternating batches "
+              f"({int(batches[0][3].sum())}/{int(batches[1][3].sum())} accepted), launches a call {g_l}, "
+              f"captures {v.programs.captures}, replays {v.programs.replays}")
+
+    # the pairing kernel gated by the device flag, at the re-check's rows
+    pp_probe = cuda_pairing.PreparedPair(prepare_g2(rc.g2_mul(rc.G2_GEN, PROBE_S)), prepare_g2(rc.G2_GEN))
+    el_r, er_r, want_r = check_rows(RLC_ROWS, 5, dev)
+    for flag in (1, 0):
+        en = torch.tensor([flag], dtype=torch.int32, device=dev)
+        got_r = cuda_pairing.pairing_check(el_r, er_r, pp_probe, enable=en)
+        plain_r, plain_ms = _plain(lambda: cuda_pairing.pairing_check_plain(el_r, er_r, pp_probe, enable=en))
+        if not (torch.equal(got_r, plain_r) and torch.equal(got_r, want_r if flag else torch.ones_like(want_r))):
+            _fail(f"pairing kernel at enable {flag} differs from its plain version or the rows' construction")
+        ms_r = _times(lambda: cuda_pairing.pairing_check(el_r, er_r, pp_probe, enable=en), "pairing_kernel", 5)
+        print(f"[programs] pairing kernel at enable {flag}, {RLC_ROWS} rows: exact against the plain version "
+              f"(plain {plain_ms:.1f} ms), {ms_r[0]:.4f} ms device, {ms_r[1]:.4f} ms per call")
+
+    # walls, eager and graph alternating in this process, three calls each
+    for label in ("a", "b", "e", "f", "j"):
+        v, entry, batches = progs[label]
+        walls = {True: [], False: []}
+        for k in range(3):
+            for graphs in (False, True):
+                walls[graphs].append(timed(lambda: form(v, entry, batches[0], graphs, SEED + k), calls=1))
+        e_ms, g_ms = (statistics.median(walls[f]) * 1e3 for f in (False, True))
+        print(f"[programs] wall {label}: eager {e_ms:.1f} ms, graph {g_ms:.1f} ms per batch (medians of 3, "
+              f"alternating; {B / e_ms * 1e3:.1f} and {B / g_ms * 1e3:.1f} proofs/s; eager "
+              f"{' '.join(f'{w * 1e3:.1f}' for w in walls[False])}, graph "
+              f"{' '.join(f'{w * 1e3:.1f}' for w in walls[True])})")
+    pools = []
+    for v in {id(v): v for v, _k, _b in progs.values()}.values():
+        for key, nbytes in v.programs.pool_bytes().items():
+            pools.append(nbytes)
+            print(f"[programs] pool {nbytes / 2**20:9.1f} MiB  k = {v.plan.vk.k:2d} {key}")
+    print(f"[programs] {len(pools)} programs hold {sum(pools) / 2**30:.2f} GiB of pools; "
+          f"{torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved; phase 5c {time.perf_counter() - t5c:.1f} s")
+    stamp("programs")
 
     # ---- 6. serving ----------------------------------------------------------
     serve("simple_mul", plan, bytes(proof_h), bytes(proof_bad), tuple(pis), B, B + B // 13, gated=True)
@@ -1616,22 +1748,29 @@ def main() -> int:
     stamp("probe path")
 
     # ---- 8. trace: the card's busy share of one default-mode batch ----------------
-    wall_u = timed(lambda: default.verify(proof_t, pis_t, hints_t, gen))
-    with torch_trace(os.path.join(out_dir, "trace_verify")) as trace_path:
-        t0 = time.perf_counter()
-        default.verify(proof_t, pis_t, hints_t, gen)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    busy, window = device_busy_us(trace_path)  # raises if the profiler saw no device activity
-    print(f"[trace] device busy share of one default-mode verify() at B={B}: {busy / window:.4f} "
-          f"({busy / 1e3:.3f} ms busy in a {window / 1e3:.3f} ms traced window; the traced call "
-          f"{traced_s * 1e3:.1f} ms, the untraced median of 3 {wall_u * 1e3:.1f} ms, so busy over "
-          f"untraced {busy / 1e3 / (wall_u * 1e3):.4f}; {os.path.relpath(trace_path, root)})")
-    by_name = device_time_by_name(trace_path)
-    print(f"[trace] {sum(c for _n, c, _us in by_name)} device activities of {len(by_name)} kinds; "
-          f"the most time:")
-    for name, count, us in by_name[:8]:
-        print(f"[trace]   {us / 1e3:9.3f} ms in {count:5d} x {name[:100]}")
+    # in the graph form (the replay of path (a)'s program) and the eager form
+    # (graphs off for the call), each beside its untraced wall
+    for form_name, graphs, trace_dir in (("graph", True, "trace_verify"), ("eager", False, "trace_verify_eager")):
+        default.graphs = graphs
+        try:
+            wall_u = timed(lambda: default.verify(proof_t, pis_t, hints_t, gen))
+            with torch_trace(os.path.join(out_dir, trace_dir)) as trace_path:
+                t0 = time.perf_counter()
+                default.verify(proof_t, pis_t, hints_t, gen)
+                torch.cuda.synchronize()
+                traced_s = time.perf_counter() - t0
+        finally:
+            default.graphs = True
+        busy, window = device_busy_us(trace_path)  # raises if the profiler saw no device activity
+        by_name = device_time_by_name(trace_path)
+        print(f"[trace] {form_name} form: device busy share of one default-mode verify() at B={B}: "
+              f"{busy / window:.4f} ({busy / 1e3:.3f} ms busy in a {window / 1e3:.3f} ms traced window; the "
+              f"traced call {traced_s * 1e3:.1f} ms, the untraced median of 3 {wall_u * 1e3:.1f} ms, so busy over "
+              f"untraced {busy / 1e3 / (wall_u * 1e3):.4f}; {os.path.relpath(trace_path, root)})")
+        print(f"[trace] {form_name} form: {sum(c for _n, c, _us in by_name)} device activities of {len(by_name)} "
+              f"kinds; the most time:")
+        for name, count, us in by_name[:8]:
+            print(f"[trace]   {us / 1e3:9.3f} ms in {count:5d} x {name[:100]}")
 
     stamp("trace")
 

@@ -56,11 +56,12 @@ back with one ``torch.cuda.synchronize()`` at the end (bench.py's
 ``compile_sec``: the first call, after the kernels are built (the nvcc build
 is not in it); ``msm_terms``, ``y_hints``, ``subgroup``,
 ``subgroup_rounds``, ``mode``, ``rlc_group``, ``traffic``; ``device``, the
-card's name and power limit (``utils/profiling.card_line``). The RLC rows
-are not fully pipelined: ``verify_rlc_device`` reads the suspect count on
-the host (``models/verifier_torch.py``, where the JAX package gates the
-re-check on the device), one sync per call, which each RLC row records as
-``host_syncs_per_call``. There is no ``vs_baseline`` and no floor:
+card's name and power limit (``utils/profiling.card_line``). Every row's
+calls replay the verifier's captured programs (``models/programs.py``; the
+first call captures, so ``warmup_sec`` holds the capture). The RLC rows are
+fully pipelined: ``verify_rlc_device`` gates the re-check on the device, as
+the JAX package does, and reads nothing back, which each RLC row records as
+``host_syncs_per_call`` 0. There is no ``vs_baseline`` and no floor:
 ``BASELINE.json``'s target and floor are TPU numbers, and the port states
 none. There is no fallback to a smaller batch: a failure raises."""
 
@@ -194,7 +195,7 @@ def bench_circuit(name: str, metric: str, batch: int, iters: int, device, y_hint
         piped_bad = _time_pipelined(fn_bad, iters, device)
         extra = {"mode": "rlc_batch_pairing_exact_verdicts", "rlc_group": rlc_group, "traffic": "honest",
                  "corrupted_row_steady_sec": piped_bad, "corrupted_row_proofs_per_sec": batch / piped_bad,
-                 "host_syncs_per_call": 1}
+                 "host_syncs_per_call": 0}
     else:
         # exact per-proof mode: every row pays its own pairing either way;
         # the corrupted batch is the timed one

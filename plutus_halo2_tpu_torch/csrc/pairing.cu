@@ -336,8 +336,19 @@ DEV_NOINLINE void run_program(const Run& r, int pid, uint32_t* dst) {
 
 template <int G>
 __global__ void pairing_kernel(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
-                               const uint32_t* consts, int* out, long long* phases, int B, int row_slots,
-                               int hot_words) {
+                               const uint32_t* consts, int* out, long long* phases, const int* enable, int B,
+                               int row_slots, int hot_words) {
+  // enable (optional, one word on the device): 0 gates the whole call off,
+  // as lax.cond around the JAX package's pairing program; every block then
+  // writes true for its rows and leaves before any barrier
+  if (enable != nullptr && __ldg(enable) == 0) {
+    const int rows = blockDim.x / G;
+    for (int k = threadIdx.x; k < rows; k += blockDim.x) {
+      const int b = blockIdx.x * rows + k;
+      if (b < B) out[b] = 1;
+    }
+    return;
+  }
   // shared memory: the ladders, the head of the program table (rounded up
   // to 4 words), then each row's slots
   extern __shared__ __align__(16) uint32_t smem[];
@@ -454,25 +465,25 @@ __global__ void pairing_kernel(const int64_t* el, const int64_t* er, const uint3
 
 template <int G>
 static int launch(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
-                  const uint32_t* consts, int* out, long long* phases, int B, int rows, int row_slots,
-                  int hot_words, cudaStream_t stream) {
+                  const uint32_t* consts, int* out, long long* phases, const int* enable, int B, int rows,
+                  int row_slots, int hot_words, cudaStream_t stream) {
   const size_t smem =
       sizeof(uint32_t) * (LADDER_WORDS + ((hot_words + 3) & ~3) + (size_t)rows * row_slots * SLOT_WORDS);
   cudaError_t e = cudaFuncSetAttribute(pairing_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pairing_kernel<G><<<(B + rows - 1) / rows, rows * G, smem, stream>>>(el, er, lines, tab, consts, out, phases, B,
-                                                                          row_slots, hot_words);
+  pairing_kernel<G><<<(B + rows - 1) / rows, rows * G, smem, stream>>>(el, er, lines, tab, consts, out, phases, enable,
+                                                                          B, row_slots, hot_words);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ph2_pairing_check(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
-                                 const uint32_t* consts, int* out, long long* phases, int B, int lanes,
-                                 int rows, int row_slots, int hot_words, void* stream) {
+                                 const uint32_t* consts, int* out, long long* phases, const int* enable, int B,
+                                 int lanes, int rows, int row_slots, int hot_words, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (lanes) {
-    case 16: return launch<16>(el, er, lines, tab, consts, out, phases, B, rows, row_slots, hot_words, s);
-    case 32: return launch<32>(el, er, lines, tab, consts, out, phases, B, rows, row_slots, hot_words, s);
+    case 16: return launch<16>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, hot_words, s);
+    case 32: return launch<32>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, hot_words, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

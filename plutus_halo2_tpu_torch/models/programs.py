@@ -1,0 +1,159 @@
+"""Captured programs: the counterpart of the JAX package's compiled verify
+programs (``plutus_halo2_tpu/models/verifier_jax.py``'s ``_prog``, one
+``jax.jit`` per stage and static key, every dispatch asynchronous).
+
+On the card each of ``TorchVerifier.verify()`` and ``verify_rlc_device()``
+runs as one CUDA graph per key (the entry point, B, the subgroup mode and
+its rounds, hinted or hintless, the RLC group and re-check width, the
+device). The JAX package splits its programs only so that the Mosaic
+payloads are compiled once and shared between call sites; a graph has
+nothing to share, so the port captures one program per entry point.
+
+The first call of a key copies its inputs into static buffers on the
+device, runs the body once eagerly on a side stream (the warm-up: it fills
+every per-device cache the kernel wrappers keep, and its outputs are that
+call's result), then captures the body over the same buffers with
+``torch.cuda.graph``. Every later call copies its inputs into the static
+buffers (an input from the host through a pinned staging buffer, without
+blocking), replays the graph and returns clones of the static outputs, which
+the next replay overwrites: callers may issue calls back to back before they
+read one.
+
+The kernel wrappers count their launches in Python, which a replay does not
+run: a program keeps what its capture counted, takes it back (a capture
+launches nothing) and adds it on every replay, and it restores the
+verifier's ``msm_term_counts`` likewise. Each graph keeps a private memory
+pool (``pool_bytes``: ``torch.cuda.memory_reserved`` before and after its
+capture; 0.27-1.5 GiB a key at B = 1024 on an H100, a dozen keys under
+6 GiB, PERF.md), for as long as its verifier lives. A capture or a replay
+that fails raises: there is no eager fallback."""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import cuda_blake, cuda_curve, cuda_field, cuda_pairing
+
+# the kernel wrappers a program body can launch, whose `launches` a replay adds to
+COUNTED = (cuda_blake.transcript_hashes, cuda_field.fr_pow, cuda_field.fp_pow, cuda_curve.msm,
+           cuda_curve.decompress_hinted, cuda_curve.aggregate_subgroup_check, cuda_pairing.pairing_check)
+
+
+def _counts() -> list[int]:
+    return [f.launches for f in COUNTED]
+
+
+def _map(fn, out):
+    return tuple(fn(o) for o in out) if isinstance(out, tuple) else fn(out)
+
+
+class _Input:
+    """One static input buffer on the device, and the pinned host buffer
+    that inputs from the host pass through."""
+
+    def __init__(self, like: torch.Tensor, device: torch.device):
+        self.static = torch.empty(like.shape, dtype=like.dtype, device=device)
+        self.staging = None
+        self.copied = None  # recorded after the staging buffer's last copy to the device
+
+    def load(self, src: torch.Tensor):
+        if src.shape != self.static.shape:
+            raise ValueError(f"a program's input is {tuple(self.static.shape)}, got {tuple(src.shape)}")
+        if src.device.type == "cuda":
+            self.static.copy_(src, non_blocking=True)
+            return
+        if self.staging is None:
+            self.staging = torch.empty(self.static.shape, dtype=self.static.dtype, pin_memory=True)
+            self.copied = torch.cuda.Event()
+        else:
+            self.copied.synchronize()  # the previous call's copy has left the staging buffer
+        self.staging.copy_(src)
+        self.static.copy_(self.staging, non_blocking=True)
+        self.copied.record()
+
+
+class Program:
+    """One entry point's body captured at one key, with its static inputs
+    and outputs and the launches of one run."""
+
+    def __init__(self, verifier, body, args):
+        dev = verifier.device
+        self.verifier = verifier
+        self.inputs = [None if a is None else _Input(a, dev) for a in args]
+        self._load(args)
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            first = body(*self._statics())
+        main.wait_stream(side)
+        _map(lambda t: t.record_stream(main), first)
+        self.first = first
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = _counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = body(*self._statics())
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = [a - b for a, b in zip(_counts(), before)]
+        self._count(-1)  # the capture launched nothing
+        self.msm_term_counts = list(verifier.msm_term_counts)
+
+    def _statics(self):
+        return [None if i is None else i.static for i in self.inputs]
+
+    def _load(self, args):
+        for i, a in zip(self.inputs, args):
+            if (i is None) != (a is None):
+                raise ValueError("a program's optional input was given where it was captured without, "
+                                 "or left out where it was captured with")
+            if i is not None:
+                i.load(a)
+
+    def _count(self, sign: int):
+        for f, n in zip(COUNTED, self.launches):
+            f.launches += sign * n
+
+    def take_first(self):
+        """The warm-up's outputs, once (the first call's result)."""
+        out, self.first = self.first, None
+        return out
+
+    def replay(self, args):
+        self._load(args)
+        self.graph.replay()
+        self._count(1)
+        self.verifier.msm_term_counts = list(self.msm_term_counts)
+        return _map(torch.clone, self.out)
+
+
+class Programs:
+    """A verifier's programs by key; `captures` and `replays` count the
+    calls of each kind."""
+
+    def __init__(self, verifier):
+        self.verifier = verifier
+        self.cache: dict = {}
+        self.captures = 0
+        self.replays = 0
+
+    def run(self, key: tuple, body, args):
+        """body(*args' static buffers) through the program of `key`: captured
+        on the key's first call (whose result is the warm-up's), replayed on
+        every later one."""
+        with torch.cuda.device(self.verifier.device):
+            prog = self.cache.get(key)
+            if prog is None:
+                prog = self.cache[key] = Program(self.verifier, body, args)
+                self.captures += 1
+                return prog.take_first()
+            out = prog.replay(args)
+            self.replays += 1
+            return out
+
+    def pool_bytes(self) -> dict:
+        """Each kept program's pool bytes, by key."""
+        return {k: p.pool_bytes for k, p in self.cache.items()}

@@ -23,6 +23,12 @@ kernel at K = group), re-checking the rows of failing groups exactly.
 On a CUDA device the stages named above run as the hand-written kernels of
 ``csrc/``; the O(1)-per-proof glue between them is batched torch code
 (``ops/limb.py``). On the CPU every stage runs its plain version.
+
+On the card ``verify()`` and ``verify_rlc_device()`` run as captured CUDA
+graphs, one per key (``models/programs.py``, the counterpart of
+``JaxVerifier._prog``'s jitted programs): their bodies, ``_verify_body``
+and ``_rlc_body``, read no value back to the host, so a whole batch is one
+graph launch. The same bodies run eagerly on the CPU.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import torch
 
 from ..ops import cuda_blake, cuda_curve, cuda_field, cuda_pairing
 from ..ops import curve as tc
-from ..ops.curve import DEFAULT_SUBGROUP_ROUNDS
+from ..ops.curve import DEFAULT_SUBGROUP_ROUNDS, CheckedWeights
 from ..ops.limb import FP_SPEC, FR_SPEC, fr
 from ..ops.pairing import prepare_g2
 from ..refimpl.curve import G1_GEN, G2_GEN, g1_neg
@@ -42,6 +48,7 @@ from ..refimpl.field import FR_DELTA, P, Q
 from ..refimpl.multiopen import group_queries_by_rotation
 from .layout import build_layout
 from .plan import FLAVOR_HALO2, CircuitPlan, eval_expr, rot_offset
+from .programs import Programs
 
 _R256 = pow(2, 256, Q)
 
@@ -220,12 +227,24 @@ class TorchVerifier:
           <= 3^-subgroup_rounds per submission;
       "exact" / True: the per-point test (plain torch on the device);
       "off" / False: encodings are trusted to be subgroup members.
-    The proof verdict itself is cofactor-insensitive either way."""
+    The proof verdict itself is cofactor-insensitive either way.
+
+    graphs: on the card, verify() and verify_rlc_device() replay one
+    captured CUDA graph per key (entry point, B, subgroup mode and rounds,
+    hinted or not, RLC group and re-check width, device), captured after an
+    eager warm-up on the key's first call (models/programs.py); False runs
+    them eagerly, for A/B. They also run eagerly on the card while
+    `timings` is set (the stages' CUDA events bracket eager stages) and
+    while `msm` is replaced (parallel.mesh.verify_2d's point-sharded MSM
+    and its collectives). The CPU always runs them eagerly. A capture or
+    replay that fails raises."""
 
     def __init__(self, plan: CircuitPlan, device=None,
                  subgroup_check: bool | str = "aggregate",
-                 subgroup_rounds: int = DEFAULT_SUBGROUP_ROUNDS, _state: dict | None = None):
+                 subgroup_rounds: int = DEFAULT_SUBGROUP_ROUNDS, graphs: bool = True,
+                 _state: dict | None = None):
         self.device = resolve_device(device)
+        self.graphs = bool(graphs)
         if subgroup_check is True:
             subgroup_check = "exact"
         if subgroup_check is False:
@@ -279,6 +298,7 @@ class TorchVerifier:
         # it; the RLC aggregation stays whole
         self.msm = cuda_curve.msm
         self.timings: dict | None = None  # set to {} to record per-stage CUDA events
+        self.programs = Programs(self)
 
     @classmethod
     def from_jax_state(cls, plan: CircuitPlan, state: dict, device=None,
@@ -329,6 +349,37 @@ class TorchVerifier:
                 cache[u, i] = FP_SPEC.encode(pow(rhs, e, P))
         return cache[inv.reshape(-1)]
 
+    def _graphed(self) -> bool:
+        """Whether the entry points replay captured programs (see graphs)."""
+        return (self.graphs and self.device.type == "cuda" and self.timings is None
+                and self.msm is cuda_curve.msm)
+
+    def _inputs(self, proof, pis, y_hints, sub_weights):
+        """A call's inputs as tensors where they lie, checked on the host:
+        (proof (B, PLEN) uint8, pis (B, n_pi, 17), hints (B, n_points, 25)
+        or None, the aggregate mode's weights held to their range as a
+        (rounds, n_points) int32 CPU tensor, or None)."""
+        proof, pis = torch.as_tensor(proof), torch.as_tensor(pis)
+        hints = None if y_hints is None else torch.as_tensor(y_hints)
+        self._check_shapes(proof, pis, hints)
+        if self.subgroup_check != "aggregate":
+            return proof, pis, hints, None
+        if sub_weights is None:
+            self._refuse_missing_weights()
+        return proof, pis, hints, tc.check_weights(sub_weights, len(self.layout.point_offsets)).to(torch.int32)
+
+    def _on_device(self, *args):
+        """_inputs' tensors on the verifier's device (the eager form of a
+        program's static buffers)."""
+        return tuple(None if a is None else a.to(self.device) for a in args)
+
+    def _verify_body(self, proof, pis, hints, sub_w):
+        """verify()'s program over _inputs' tensors on the device: core, the
+        pairing, the verdicts."""
+        el, er, all_valid = self.core(proof, pis, hints, None if sub_w is None else CheckedWeights(sub_w))
+        ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el, er, self.pair))
+        return ok & all_valid
+
     def verify(self, proof_bytes, public_inputs, y_hints=None,
                generator: torch.Generator | None = None, sub_weights=None):
         """proof_bytes (B, PLEN) uint8, public_inputs (B, n_pi, 17) canonical
@@ -343,9 +394,18 @@ class TorchVerifier:
         weights to every shard of a batch."""
         if sub_weights is None:
             sub_weights = self.subgroup_weights(generator)
-        el, er, all_valid = self.core(proof_bytes, public_inputs, y_hints, sub_weights)
-        ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el, er, self.pair))
-        return ok & all_valid
+        args = self._inputs(proof_bytes, public_inputs, y_hints, sub_weights)
+        if self._graphed():
+            return self.programs.run(self._key("verify", args), self._verify_body, args)
+        return self._verify_body(*self._on_device(*args))
+
+    def _key(self, entry: str, args, *extra) -> tuple:
+        """A program's key: the entry point, B, the subgroup mode and its
+        rounds, hinted or hintless, the RLC group and re-check width, the
+        device."""
+        proof, _pis, hints, w = args[:4]
+        return (entry, proof.shape[0], self.subgroup_check, None if w is None else w.shape[0],
+                hints is not None, *extra, str(self.device))
 
     # -- RLC batched pairing ----------------------------------------------
     _RLC_RECHECK = 128  # rows exactly re-checked in-flight per RLC batch
@@ -383,26 +443,40 @@ class TorchVerifier:
         """The device leg of verify_rlc: returns (verdicts, n_suspects,
         group_ok, all_valid, el, er, R), R the in-flight re-check width.
         `verdicts` is already exact whenever n_suspects <= R; rlc_finalize
-        handles the overflow."""
+        handles the overflow. Reads nothing back from the device: the
+        re-check's pairing is gated on the device by n_suspects > 0, as
+        JaxVerifier gates it with lax.cond."""
         B = torch.as_tensor(proof_bytes).shape[0]
         if group < 1 or B % group:
             raise ValueError(f"batch {B} is not a multiple of group {group}")
-        el, er, all_valid = self.core(proof_bytes, public_inputs, y_hints,
-                                      self.subgroup_weights(generator))
+        R = min(self._RLC_RECHECK, B)
+        weights = torch.as_tensor(weights).to(torch.int64)
+        if weights.shape != (B, FR_SPEC.L):
+            raise ValueError(f"RLC weights must be (B, {FR_SPEC.L}), got {tuple(weights.shape)}")
+        args = (*self._inputs(proof_bytes, public_inputs, y_hints, self.subgroup_weights(generator)), weights)
+
+        def body(*a):
+            return self._rlc_body(*a, group=group, R=R)
+
+        if self._graphed():
+            out = self.programs.run(self._key("rlc", args, group, R), body, args)
+        else:
+            out = body(*self._on_device(*args))
+        return (*out, R)
+
+    def _rlc_body(self, proof, pis, hints, sub_w, weights, *, group: int, R: int):
+        """verify_rlc_device's program over _inputs' tensors and the RLC
+        weights on the device: core, the group aggregates and their pairing,
+        the suspect gather, the gated re-check pairing, the scatter ->
+        (verdicts, n_sus, group_ok, all_valid, el, er)."""
+        el, er, all_valid = self.core(proof, pis, hints, None if sub_w is None else CheckedWeights(sub_w))
         el_g, er_g = self._stage("rlc_msm", lambda: self._agg(el, er, all_valid, weights, group))
         group_ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el_g, er_g, self.pair))
-        R = min(self._RLC_RECHECK, B)
         verdicts0, n_sus, group_ok, idx, live, el_s, er_s = self._post(
             group_ok, all_valid, el, er, group, R)
-        # JaxVerifier gates the re-check pairing on the device (lax.cond);
-        # here one host read of the suspect count skips it on clean batches
-        if int(n_sus):
-            row_ok = self._stage("recheck",
-                                 lambda: cuda_pairing.pairing_check(el_s, er_s, self.pair))
-            verdicts = self._final(verdicts0, idx, live, row_ok)
-        else:
-            verdicts = verdicts0
-        return verdicts, n_sus, group_ok, all_valid, el, er, R
+        row_ok = self._stage("recheck", lambda: cuda_pairing.pairing_check(
+            el_s, er_s, self.pair, enable=n_sus > 0))
+        return self._final(verdicts0, idx, live, row_ok), n_sus, group_ok, all_valid, el, er
 
     def rlc_finalize(self, verdicts, n_sus, group_ok, all_valid, el, er, R: int) -> np.ndarray:
         """Host tail of verify_rlc: exact verdicts out. Only when more than
@@ -451,11 +525,14 @@ class TorchVerifier:
 
     @staticmethod
     def _final(verdicts0, idx, live, row_ok):
-        """Scatter the re-check verdicts of the live slots only (the others
-        would alias rows that were not re-checked)."""
-        verdicts = verdicts0.clone()
-        verdicts[idx[live]] = row_ok[live]
-        return verdicts
+        """Scatter the re-check verdicts of the live slots only, in a fixed
+        shape (JaxVerifier._final_impl's drop-mode scatter): the idle slots,
+        which alias rows that were not re-checked (row 0 among them), all
+        land in one slot past the batch, which is then dropped."""
+        B = verdicts0.shape[0]
+        idx_w = torch.where(live, idx, B)
+        padded = torch.cat([verdicts0, verdicts0[:1]])
+        return padded.scatter(0, idx_w, row_ok)[:B]
 
     def _recheck_rows(self, el, er, suspects) -> np.ndarray:
         """Exact per-row pairing checks of the suspect row indices (the
@@ -502,26 +579,37 @@ class TorchVerifier:
             buf[:, pos : pos + 32] = self._pi_bytes(pis[:, i, :])
         return buf.contiguous()
 
+    @staticmethod
+    def _refuse_missing_weights():
+        # refuse a silent downgrade of the default strict mode
+        raise ValueError("subgroup_check='aggregate' requires sub_weights: pass "
+                         "verifier.subgroup_weights() (fresh per batch), or construct "
+                         "TorchVerifier(subgroup_check='off'/'exact')")
+
+    def _check_shapes(self, proof, pis, hints):
+        B, n_points = proof.shape[0], len(self.layout.point_offsets)
+        if proof.dtype != torch.uint8 or proof.dim() != 2 or proof.shape[1] != self.layout.proof_len:
+            raise ValueError(f"proofs must be (B, {self.layout.proof_len}) uint8, got "
+                             f"{tuple(proof.shape)} {proof.dtype}")
+        if pis.shape != (B, self.n_pi, FR_SPEC.L):
+            raise ValueError(f"public inputs must be (B, {self.n_pi}, {FR_SPEC.L})")
+        if hints is not None and hints.shape != (B, n_points, FP_SPEC.L):
+            raise ValueError(f"y_hints must be (B, {n_points}, {FP_SPEC.L}), got {tuple(hints.shape)}")
+
     def core(self, proof, pis, y_hints=None, sub_weights=None):
         """proof bytes -> (el, er, all_valid): the pairing sides and the
         per-row validity of the proof's point encodings (decompression and,
         unless the mode is "off", subgroup membership). sub_weights: the
         aggregate mode's (rounds, n_points) weights (subgroup_weights())."""
         if self.subgroup_check == "aggregate" and sub_weights is None:
-            # refuse a silent downgrade of the default strict mode
-            raise ValueError("subgroup_check='aggregate' requires sub_weights: pass "
-                             "verifier.subgroup_weights() (fresh per batch), or construct "
-                             "TorchVerifier(subgroup_check='off'/'exact')")
+            self._refuse_missing_weights()
         plan, lay, vk = self.plan, self.layout, self.plan.vk
         dev = self.device
         proof = torch.as_tensor(proof, device=dev)
         pis = torch.as_tensor(pis, device=dev).to(torch.int64)
         B = proof.shape[0]
-        if proof.dtype != torch.uint8 or proof.dim() != 2 or proof.shape[1] != lay.proof_len:
-            raise ValueError(f"proofs must be (B, {lay.proof_len}) uint8, got "
-                             f"{tuple(proof.shape)} {proof.dtype}")
-        if pis.shape != (B, self.n_pi, FR_SPEC.L):
-            raise ValueError(f"public inputs must be (B, {self.n_pi}, {FR_SPEC.L})")
+        hints = None if y_hints is None else torch.as_tensor(y_hints, device=dev).to(torch.int64).contiguous()
+        self._check_shapes(proof, pis, hints)
 
         # ---- transcript buffer + all challenges --------------------------
         def transcript():
@@ -540,13 +628,6 @@ class TorchVerifier:
             scalars = {n: sc_vals[:, i, :] for i, n in enumerate(lay.scalar_offsets)}
 
         point_names = list(lay.point_offsets)
-
-        hints = None
-        if y_hints is not None:
-            hints = torch.as_tensor(y_hints, device=dev).to(torch.int64).contiguous()
-            if hints.shape != (B, len(point_names), FP_SPEC.L):
-                raise ValueError(f"y_hints must be (B, {len(point_names)}, {FP_SPEC.L}), "
-                                 f"got {tuple(hints.shape)}")
 
         def decompress():
             pt_raw = proof[:, self._pt_idx]

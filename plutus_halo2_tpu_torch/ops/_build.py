@@ -47,7 +47,7 @@ SIGNATURES = {
     "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _I, _P),
     "ph2_transcript": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P),
     "ph2_msm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_decompress": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "ph2_subgroup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),

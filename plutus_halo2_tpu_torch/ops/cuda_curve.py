@@ -96,7 +96,12 @@ msm.launches = 0
 
 
 def _weights_on(weights, K: int, device) -> torch.Tensor:
-    """Checked (rounds, K) weights as a contiguous int32 tensor on `device`."""
+    """Checked (rounds, K) weights as a contiguous int32 tensor on `device`:
+    CheckedWeights as they are (no copy, no host check), any other weights
+    checked on the host and copied."""
+    if isinstance(weights, curve.CheckedWeights):
+        _build.require(weights.w, "weights", torch.int32, (None, K))
+        return weights.w
     return curve.check_weights(weights, K).to(torch.int32).to(device).contiguous()
 
 

@@ -77,19 +77,21 @@ def rows_per_block(B: int, device) -> int:
     return min(MAX_ROWS_PER_BLOCK, max(1, -(-B // sms)))
 
 
-def pairing_check_plain(el, er, pp: PreparedPair):
-    return pairing_check_projective(el, er, pp.prep1, pp.prep2)
+def pairing_check_plain(el, er, pp: PreparedPair, enable=None):
+    ok = pairing_check_projective(el, er, pp.prep1, pp.prep2)
+    return ok if enable is None else torch.where(enable.reshape(()).bool(), ok, True)
 
 
-def pairing_check(el, er, pp: PreparedPair, phases=None):
-    """el, er (B, 3, 25) projective Montgomery -> (B,) bool. `phases`, a
+def pairing_check(el, er, pp: PreparedPair, phases=None, enable=None):
+    """el, er (B, 3, 25) projective Montgomery -> (B,) bool; with `enable`
+    (a one-element tensor on el's device) false, every row true. `phases`, a
     (B, 10) int64 CUDA tensor, receives each row's clock64() at the start
     and after the affine conversion, the Miller loop, the easy part, the
     five chains and the tail, then the cycles its stages of products,
     linear combinations and inversions took and the number of stages (a
     row of two identities stops after the start)."""
     if el.device.type == "cpu":
-        return pairing_check_plain(el, er, pp)
+        return pairing_check_plain(el, er, pp, enable)
     _build.require(el, "el", torch.int64, (None, 3, FP_SPEC.L))
     _build.require(er, "er", torch.int64, tuple(el.shape))
     B = el.shape[0]
@@ -101,10 +103,13 @@ def pairing_check(el, er, pp: PreparedPair, phases=None):
     out = torch.empty((B,), dtype=torch.int32, device=el.device)
     if phases is not None:
         _build.require(phases, "phases", torch.int64, (B, 10))
+    if enable is not None:
+        enable = enable.reshape(1).to(torch.int32)
+        _build.require(enable, "enable", torch.int32, (1,))
     lib = _build.library()
     _build.check(lib.ph2_pairing_check(_build.ptr(el), _build.ptr(er), _build.ptr(lines), _build.ptr(tab),
                                        _build.ptr(consts), _build.ptr(out),
-                                       None if phases is None else _build.ptr(phases), B, LANES, rows,
+                                       _build.ptr_or_none(phases), _build.ptr_or_none(enable), B, LANES, rows,
                                        row_slots, hot_words, _build.stream_ptr()),
                  "ph2_pairing_check")
     pairing_check.launches += 1

@@ -23,6 +23,7 @@ y_hint=)`` of the hinted decompression kernel (``csrc/decompress.cu``).
 from __future__ import annotations
 
 import secrets
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,8 +36,17 @@ _B3 = FP_SPEC.to_mont(12)  # 3*b, b = 4
 _B = FP_SPEC.to_mont(4)
 
 
+_CONSTS: dict = {}
+
+
 def _c(arr, device):
-    return torch.as_tensor(arr, device=device)
+    """A module constant on `device`, copied there once (a copy inside a
+    captured program would read host memory at capture time only)."""
+    key = (arr.tobytes(), arr.shape, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(arr, device=device)
+    return t
 
 
 def pt(x, y, z):
@@ -332,10 +342,23 @@ def subgroup_weights(n_points: int, rounds: int = DEFAULT_SUBGROUP_ROUNDS,
                          for _ in range(rounds)], dtype=torch.int64).reshape(rounds, n_points)
 
 
+class CheckedWeights(NamedTuple):
+    """Aggregation weights that ``check_weights`` has already held to
+    [1, 2^16): a (rounds, n_points) int32 tensor on their device, which no
+    call reads back (a captured program's static weights buffer)."""
+
+    w: torch.Tensor
+
+
 def check_weights(weights, n_points: int) -> torch.Tensor:
     """Aggregation weights as a (rounds, n_points) int64 CPU tensor, each in
     [1, 2^16); raises on anything else (both the kernel and its plain
-    version take only such weights)."""
+    version take only such weights). CheckedWeights are checked by shape
+    only and stay on their device."""
+    if isinstance(weights, CheckedWeights):
+        if weights.w.dim() != 2 or weights.w.shape[1] != n_points:
+            raise ValueError(f"weights must be (rounds >= 1, {n_points}), got {tuple(weights.w.shape)}")
+        return weights.w.to(torch.int64)
     w = torch.as_tensor(weights).cpu()
     if w.dtype.is_floating_point or w.dtype == torch.bool or w.dim() != 2 \
             or w.shape[0] < 1 or w.shape[1] != n_points:

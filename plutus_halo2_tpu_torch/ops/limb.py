@@ -318,6 +318,7 @@ class Field:
     def __init__(self, spec: FieldSpec):
         self.spec = spec
         self.L = spec.L
+        self._consts: dict = {}
 
     def add(self, a, b):
         return add(self.spec, a, b)
@@ -353,8 +354,13 @@ class Field:
         return eq(self.spec, a, b)
 
     def const(self, x: int, device):
-        """Montgomery-domain constant as a tensor on `device`."""
-        return torch.as_tensor(self.spec.to_mont(x), device=device)
+        """Montgomery-domain constant as a tensor on `device`, copied there
+        once (a captured program may not copy from the host)."""
+        key = (x, str(device))
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.as_tensor(self.spec.to_mont(x), device=device)
+        return t
 
     def batch_inv(self, xs, dim=-2, inv_fn=None):
         return batch_inv(self.spec, xs, dim, inv_fn=inv_fn)

@@ -85,7 +85,7 @@ def test_bench_rows_on_the_cpu(tmp_path, capsys):
     assert by[metrics[1]]["msm_terms"] == [16]
     head = by[bench.HEADLINE]
     assert set(head) - {"date", "commit"} == _port(JAX_ROW | JAX_AGGREGATE | JAX_RLC | JAX_HEADLINE, rlc=True)
-    assert (head["rlc_group"], head["traffic"], head["host_syncs_per_call"]) == (8, "honest", 1)
+    assert (head["rlc_group"], head["traffic"], head["host_syncs_per_call"]) == (8, "honest", 0)
     assert head["msm_terms"] == [16, 8]
     msm = by["g1_msm_points_per_sec"]
     assert set(msm) - {"date", "commit"} == _port(JAX_MSM)

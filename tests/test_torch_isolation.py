@@ -51,7 +51,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "parallel.mesh", "tools.submit", "tools.multihost_smoke", "bench", "entry",
                 "refimpl.poly", "refimpl.srs", "refimpl.keygen", "refimpl.prover", "refimpl.jubjub",
                 "refimpl.rescue", "ops.poly", "ops.cuda_poly", "examples.simple_mul", "examples.lookup_table",
-                "examples.atms", "examples.equations_test"):
+                "examples.atms", "examples.equations_test", "models.programs"):
         assert f"plutus_halo2_tpu_torch.{mod}" in names.split(), mod
 
 

@@ -7,7 +7,9 @@ rows whose points all decode, against the plain version of the kernels'
 decomposition and the JAX package's algorithm; the pow kernel on 0, 1 and
 N - 1; every lane-group width; the tensor-core probe kernels bit for bit), the point-sharded
 MSM (parallel/mesh.shard_map_msm) on a virtual mesh of the card against the unsharded kernel,
-the verifier's modes and verify_rlc on the card against the CPU, and the
+the verifier's modes and verify_rlc on the card against the CPU, the
+captured programs against the eager form (over alternating batches, two
+replays back to back before a sync) and the pairing kernel's enable flag, and the
 prover's four Fr polynomial kernels (csrc/poly.cu) at ragged sizes, word
 for word against their plain versions.
 
@@ -433,6 +435,81 @@ def test_verify_rlc_on_gpu_matches_cpu(dev):
                                        v.compute_y_hints(batch), group=4,
                                        generator=torch.Generator().manual_seed(9)).tolist()
         assert got["cuda"] == got["cpu"] == want
+
+
+@pytest.mark.parametrize("B", [1, 17, 128])
+def test_graph_form_equals_eager_form(dev, B):
+    """verify() (the default mode, one corrupted hint) and
+    verify_rlc_device (group 1 at B = 1 and 17, 8 at 128) as captured
+    programs against the eager form on the same inputs and weights, on the
+    key's first call (the warm-up) and on replays over alternating batches,
+    with the launch counts of one run added on every replay."""
+    from plutus_halo2_tpu_torch.models.programs import COUNTED
+    from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
+
+    plan, pis, good, bad = _artifacts()
+    mixed = np.stack([good] * B).copy()
+    mixed[B // 2] = bad
+    mixed[0, 100] ^= 0x40
+    honest = np.stack([good] * B)
+    graph, eager = TorchVerifier(plan, device=dev), TorchVerifier(plan, device=dev, graphs=False)
+    pis_b = graph.encode_public_inputs([pis] * B)
+    group = 8 if B % 8 == 0 else 1
+    w = graph.rlc_weights(B, torch.Generator().manual_seed(4))
+    for batch in (mixed, honest, mixed):
+        hints = graph.compute_y_hints(batch)
+        hints[-1, 1, 0] ^= 1
+        out = {}
+        for name, v in (("graph", graph), ("eager", eager)):
+            before = [f.launches for f in COUNTED]
+            ok = v.verify(batch, pis_b, hints, torch.Generator().manual_seed(3)).cpu()
+            rlc = v.verify_rlc_device(batch, pis_b, w, hints, group=group,
+                                      generator=torch.Generator().manual_seed(3))
+            out[name] = (ok.tolist(), rlc[0].cpu().tolist(), int(rlc[1]), v.msm_term_counts,
+                         [f.launches - b for f, b in zip(COUNTED, before)])
+        assert out["graph"] == out["eager"]
+        want = [bool((batch[i] == good).all()) and i != B - 1 for i in range(B)]
+        assert out["graph"][0] == out["graph"][1] == want
+    assert (graph.programs.captures, graph.programs.replays) == (2, 4)
+    assert eager.programs.captures == 0
+
+
+def test_back_to_back_replays_keep_distinct_outputs(dev):
+    """Two replays of one program issued before any sync: each call's
+    verdicts are its own batch's (the outputs are clones, and a host input's
+    pinned staging buffer is not overwritten while its copy is queued)."""
+    from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
+
+    plan, pis, good, bad = _artifacts()
+    B = 64
+    honest = np.stack([good] * B)
+    mixed = honest.copy()
+    mixed[::3] = bad
+    v = TorchVerifier(plan, device=dev, subgroup_check="off")
+    pis_b = v.encode_public_inputs([pis] * B)
+    v.verify(honest, pis_b)  # the capture
+    torch.cuda.synchronize()
+    outs = [v.verify(b, pis_b) for b in (mixed, honest, mixed, honest)]
+    torch.cuda.synchronize()
+    want_mixed = [i % 3 != 0 for i in range(B)]
+    assert [o.cpu().tolist() for o in outs] == [want_mixed, [True] * B] * 2
+    outs = [v.verify(torch.from_numpy(b).to(dev), torch.from_numpy(pis_b).to(dev)) for b in (mixed, honest)]
+    assert [o.cpu().tolist() for o in outs] == [want_mixed, [True] * B]
+
+
+@pytest.mark.parametrize("B", [1, 17, 129])
+def test_pairing_kernel_enable_flag(dev, B):
+    """The pairing kernel gated by a device flag: at 1 its verdicts, at 0
+    every row true, both against the plain version's torch.where, at B
+    ragged against the rows per block."""
+    pp = cuda_pairing.PreparedPair(tp.prepare_g2(rc.g2_mul(rc.G2_GEN, S)), tp.prepare_g2(rc.G2_GEN))
+    el, er, want = check_rows(B, B + 3, dev)
+    for flag in (True, False):
+        for enable in (torch.tensor(flag, device=dev), torch.tensor([int(flag)], dtype=torch.int32, device=dev)):
+            got = cuda_pairing.pairing_check(el, er, pp, enable=enable)
+            plain = cuda_pairing.pairing_check_plain(el, er, pp, enable=enable)
+            assert torch.equal(got, plain)
+            assert got.tolist() == (want.tolist() if flag else [True] * B)
 
 
 def _nonsubgroup_point():
