@@ -72,7 +72,8 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      path launches the re-check's pairing, gated on the device by its
      suspect count, which must be non-zero on (d) and zero on (e), (e');
      paths (a), (b) and (e) are then timed, wall and stages, over three
-     more calls in the eager form (the stages' CUDA events need it);
+     more calls in the graph form, traced (``utils/tracing.py``: the
+     stages' event nodes in the key's traced program);
   5b. the circuits, each on B = 1024 rows: the committed set's honest
      proof, its invalid twin every 8th row, a corrupted proof scalar and,
      on an honest row, a corrupted y-hint (``circuit_batch``,
@@ -648,7 +649,7 @@ def main() -> int:
     from plutus_halo2_tpu_torch.refimpl import curve as rc
     from plutus_halo2_tpu_torch.refimpl.field import BLS_X, Q
     from plutus_halo2_tpu_torch.utils.profiling import WINDOW, device_busy_us, device_time_by_name, torch_trace
-    from plutus_halo2_tpu_torch.utils import artifacts, serialization
+    from plutus_halo2_tpu_torch.utils import artifacts, serialization, tracing
 
     dev = torch.device("cuda")
     t_run = time.perf_counter()
@@ -1180,14 +1181,36 @@ def main() -> int:
               f"launches {launches}, first call {first_s:.3f} s")
         return launches
 
-    def stage_table(label, v, wall):
-        """Median CUDA-event ms per stage of v's recorded calls; "other" is
-        the wall time the stages leave."""
-        stage_ms = {k: statistics.median(a.elapsed_time(b) for a, b in evs) for k, evs in v.timings.items()}
-        for k, ms in stage_ms.items():
-            print(f"[path] {label} stage {k:<10} {ms:9.3f} ms")
-        print(f"[path] {label} stage {'other':<10} {wall * 1e3 - sum(stage_ms.values()):9.3f} ms "
-              f"(multi-open scalar glue, parsing, host)")
+    def stage_table(label, calls, wall):
+        """Median device ms per stage of the traced calls (a child stage
+        indented under its parent, whose self time follows), the graph's
+        span, and "other": the wall time the graph leaves (host checks,
+        staging, clones, the sync)."""
+        names = list(dict.fromkeys((s.name, s.parent is not None) for s in calls[0].stages))
+        for name, child in names:
+            ms = statistics.median(c.stage_ms(name) for c in calls)
+            own = "" if child else f" (self {statistics.median(c.self_ms(name) for c in calls):.3f} ms)"
+            print(f"[path] {label} stage {'  ' * child + name:<12} {ms:9.3f} ms{own}")
+        graph = statistics.median(c.graph_ms for c in calls)
+        print(f"[path] {label} stage {'graph':<12} {graph:9.3f} ms (the stages tile it: "
+              f"{statistics.median(c.top_ms() for c in calls):.3f} ms)")
+        print(f"[path] {label} stage {'other':<12} {wall * 1e3 - graph:9.3f} ms (host checks, staging, clones, sync)")
+
+    def traced_timed(label, fn):
+        """timed(fn) in the graph form, traced: a first call captures the
+        key's traced program, the three timed calls replay it; then their
+        stage table. Returns the median wall."""
+        tracing.enable()
+        try:
+            fn()
+            tracing.RECORDER.clear()
+            wall = timed(fn)
+            calls = [c for c in tracing.calls() if c.device is not None]
+        finally:
+            tracing.disable()
+        print(f"[path] {label}: {B / wall:.1f} proofs/s (median of 3 calls in the graph form, traced: "
+              f"{wall * 1e3:.1f} ms per batch)")
+        stage_table(label, calls, wall)
 
     def timed(fn, calls=3):
         walls = []
@@ -1222,22 +1245,12 @@ def main() -> int:
     # (a) the default mode
     run_path("a default (hints, fused aggregate subgroup)",
              lambda: default.verify(proof_t, pis_t, hints_t, gen), hinted, base + ("decompress",))
-    default.timings = {}
-    wall = timed(lambda: default.verify(proof_t, pis_t, hints_t, gen))
-    print(f"[path] a: {B / wall:.1f} proofs/s (median of 3 verify() calls, eager with its stages timed: "
-          f"{wall * 1e3:.1f} ms per batch)")
-    stage_table("a", default, wall)
-    default.timings = None
+    traced_timed("a", lambda: default.verify(proof_t, pis_t, hints_t, gen))
 
     # (b) the hintless aggregate mode (__graft_entry__.entry()'s path)
     run_path("b hintless aggregate", lambda: default.verify(proof_t, pis_t, None, gen), expected,
              base + ("pow_fp", "subgroup"))
-    default.timings = {}
-    wall_b = timed(lambda: default.verify(proof_t, pis_t, None, gen))
-    print(f"[path] b: {B / wall_b:.1f} proofs/s (median of 3 verify() calls, eager with its stages timed: "
-          f"{wall_b * 1e3:.1f} ms per batch)")
-    stage_table("b", default, wall_b)
-    default.timings = None
+    traced_timed("b", lambda: default.verify(proof_t, pis_t, None, gen))
     # (c) the hintless mode with the subgroup test off
     run_path("c hintless, subgroup off", lambda: verifier.verify(proof_t, pis_t), expected,
              base + ("pow_fp",))
@@ -1279,12 +1292,7 @@ def main() -> int:
     launches_e = run_path("e verify_rlc group 8, honest", rlc(default, honest_t, pis_t, honest_hints),
                           np.ones(B, bool), rlc_needs)
     check_gate("e", launches_e, False)
-    default.timings = {}
-    wall_e = timed(lambda: default.verify_rlc(honest_t, pis_t, honest_hints, group=8, generator=gen))
-    print(f"[path] e: {B / wall_e:.1f} proofs/s (median of 3 verify_rlc() calls, eager with its stages timed: "
-          f"{wall_e * 1e3:.1f} ms per batch)")
-    stage_table("e", default, wall_e)
-    default.timings = None
+    traced_timed("e", lambda: default.verify_rlc(honest_t, pis_t, honest_hints, group=8, generator=gen))
     bad_hint = honest_hints.clone()
     bad_hint[B - 3, 0, 0] ^= 1
     want_e2 = np.ones(B, bool)
@@ -1373,14 +1381,6 @@ def main() -> int:
             print(f"[path] {label}: {n} kernel on the path's {tuple(args[0].shape)} input exact against its "
                   f"plain version (plain {plain_ms:.1f} ms)")
 
-    def timed_path(label, v_s, fn):
-        v_s.timings = {}
-        wall_p = timed(fn)
-        print(f"[path] {label}: {B / wall_p:.1f} proofs/s (median of 3 calls, eager with its stages timed: "
-              f"{wall_p * 1e3:.1f} ms per batch)")
-        stage_table(label, v_s, wall_p)
-        v_s.timings = None
-
     gv, g_proof, g_pis, g_hints, g_want, g_hinted = circuit_inputs("simple_mul_gwc19")
     # (f) GWC19, the default mode
     with keeping("transcript") as kept:
@@ -1388,14 +1388,14 @@ def main() -> int:
                  lambda: gv.verify(g_proof, g_pis, g_hints, gen), g_hinted, base + ("decompress",))
     hold_plain("f", kept)
     check_counts("f", gv, [3, 17])
-    timed_path("f", gv, lambda: gv.verify(g_proof, g_pis, g_hints, gen))
+    traced_timed("f", lambda: gv.verify(g_proof, g_pis, g_hints, gen))
     # (g) GWC19, the hintless aggregate mode
     with keeping("pow_fp", "subgroup") as kept:
         run_path("g simple_mul GWC19 hintless aggregate", lambda: gv.verify(g_proof, g_pis, None, gen), g_want,
                  base + ("pow_fp", "subgroup"))
     hold_plain("g", kept)
     check_counts("g", gv, [3, 17])
-    timed_path("g", gv, lambda: gv.verify(g_proof, g_pis, None, gen))
+    traced_timed("g", lambda: gv.verify(g_proof, g_pis, None, gen))
     # (h) GWC19 verify_rlc on the mixed batch (failing groups re-checked) and
     # on an honest batch (no re-check)
     launches_h = run_path("h simple_mul GWC19 verify_rlc group 8, mixed", rlc(gv, g_proof, g_pis, g_hints),
@@ -1421,7 +1421,7 @@ def main() -> int:
         hold_plain(label, kept)
         check_counts(label, cv, want_k)
         if timed_p:
-            timed_path(label, cv, lambda: cv.verify(c_proof, c_pis, c_hints, gen))
+            traced_timed(label, lambda: cv.verify(c_proof, c_pis, c_hints, gen))
 
     def serve(label, plan_s, good, bad, inputs, batch_size, n, gated=False):
         """n submissions (the invalid twin at i % 13 == 5, a bit-flipped

@@ -26,13 +26,24 @@ verifier's ``msm_term_counts`` likewise. Each graph keeps a private memory
 pool (``pool_bytes``: ``torch.cuda.memory_reserved`` before and after its
 capture; 0.27-1.5 GiB a key at B = 1024 on an H100, a dozen keys under
 6 GiB, PERF.md), for as long as its verifier lives. A capture or a replay
-that fails raises: there is no eager fallback."""
+that fails raises: there is no eager fallback.
+
+At capture a program counts its graph's nodes by type (``nodes``: kernel,
+memcpy, memset, event and other nodes), the in-program count of the
+kernels a replay runs. While tracing is on (``utils/tracing.py``) a key is
+captured apart from its untraced twin, with an event-record node at each
+stage boundary, and each replay is a traced call: its spans, its device
+events before the staging and after the clones, and the stage nodes
+re-pointed to its own events (``Program.replay``)."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from ..ops import cuda_blake, cuda_curve, cuda_field, cuda_pairing
+from ..ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_pairing
+from ..utils import tracing
 
 # the kernel wrappers a program body can launch, whose `launches` a replay adds to
 COUNTED = (cuda_blake.transcript_hashes, cuda_field.fr_pow, cuda_field.fp_pow, cuda_curve.msm,
@@ -45,6 +56,22 @@ def _counts() -> list[int]:
 
 def _map(fn, out):
     return tuple(fn(o) for o in out) if isinstance(out, tuple) else fn(out)
+
+
+NODE_TYPES = ("kernel", "memcpy", "memset", "event", "other")
+
+
+def census(raw_graph: int, max_events: int):
+    """A captured graph's nodes counted by NODE_TYPES, and its first
+    max_events event-record nodes with the events they record (handles)."""
+    counts = (ctypes.c_longlong * len(NODE_TYPES))()
+    nodes, events = (ctypes.c_void_p * max(max_events, 1))(), (ctypes.c_void_p * max(max_events, 1))()
+    found = ctypes.c_int()
+    _build.check(_build.library().ph2_graph_census(
+        raw_graph, ctypes.addressof(counts), ctypes.addressof(nodes), ctypes.addressof(events), max_events,
+        ctypes.addressof(found)), "ph2_graph_census")
+    n = min(found.value, max_events)
+    return dict(zip(NODE_TYPES, counts)), list(nodes[:n]), list(events[:n])
 
 
 class _Input:
@@ -74,9 +101,11 @@ class _Input:
 
 class Program:
     """One entry point's body captured at one key, with its static inputs
-    and outputs and the launches of one run."""
+    and outputs, the launches of one run and its graph's node census;
+    `traced`: its stage boundaries are event-record nodes (`stage_plan`,
+    `mark_nodes` in mark order)."""
 
-    def __init__(self, verifier, body, args):
+    def __init__(self, verifier, body, args, traced: bool = False):
         dev = verifier.device
         self.verifier = verifier
         self.inputs = [None if a is None else _Input(a, dev) for a in args]
@@ -94,9 +123,23 @@ class Program:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         before = _counts()
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the census and the stage nodes
+        stages = tracing.CaptureStages() if traced else None
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = body(*self._statics())
+            self.out = body(*self._statics()) if stages is None else stages.run(body, *self._statics())
+        self.nodes, marks, handles = census(self.graph.raw_cuda_graph(), 0 if stages is None else 2 * stages.count)
+        self.stage_plan = None if stages is None else [tuple(p) for p in stages.plan]
+        if stages is not None:
+            at = dict(zip(handles, marks))
+            missing = [i for i, e in enumerate(stages.events) if e.cuda_event not in at]
+            if missing:
+                raise RuntimeError(f"the captured graph lacks the event nodes of stage marks {missing}")
+            self.mark_nodes = (ctypes.c_void_p * stages.count)(*[at[e.cuda_event] for e in stages.events])
+            self._mark_events = stages.events  # the nodes' events until a replay re-points them
+        self.graph.instantiate()
+        self.exec_ptr = self.graph.raw_cuda_graph_exec()
+        if stages is not None:
+            tracing.RECORDER.prepare(dev, tracing.MARKS + stages.count)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.launches = [a - b for a, b in zip(_counts(), before)]
         self._count(-1)  # the capture launched nothing
@@ -122,12 +165,30 @@ class Program:
         out, self.first = self.first, None
         return out
 
-    def replay(self, args):
-        self._load(args)
-        self.graph.replay()
+    def replay(self, args, call=None):
+        """One run over args; `call` (tracing.Call) records it, a traced
+        program's call only. Before a traced replay the graph's stage nodes
+        are re-pointed to the call's events (a host-only update of the
+        instantiated graph; replays already queued keep theirs)."""
+        if call is None:
+            self._load(args)
+            self.graph.replay()
+        else:
+            with call.span("ph2.load"):
+                call.event(tracing.CALL_START)
+                self._load(args)
+            call.plan, call.nodes = self.stage_plan, self.nodes
+            n = len(self.mark_nodes)
+            _build.check(_build.library().ph2_graph_set_events(self.exec_ptr, ctypes.addressof(self.mark_nodes),
+                                                               call.marks(n), n), "ph2_graph_set_events")
+            with call.span("ph2.launch"):
+                self.graph.replay()
         self._count(1)
         self.verifier.msm_term_counts = list(self.msm_term_counts)
-        return _map(torch.clone, self.out)
+        out = _map(torch.clone, self.out)
+        if call is not None:
+            call.event(tracing.CALL_END)
+        return out
 
 
 class Programs:
@@ -140,17 +201,22 @@ class Programs:
         self.captures = 0
         self.replays = 0
 
-    def run(self, key: tuple, body, args):
+    def run(self, key: tuple, body, args, call=None):
         """body(*args' static buffers) through the program of `key`: captured
         on the key's first call (whose result is the warm-up's), replayed on
-        every later one."""
+        every later one. A traced call (`call`, a tracing.Call) runs the
+        key's traced program, a key of its own."""
+        if call is not None:
+            key = (*key, "traced")
         with torch.cuda.device(self.verifier.device):
             prog = self.cache.get(key)
             if prog is None:
-                prog = self.cache[key] = Program(self.verifier, body, args)
+                prog = self.cache[key] = Program(self.verifier, body, args, traced=call is not None)
+                if call is not None:
+                    call.captured, call.nodes = True, prog.nodes
                 self.captures += 1
                 return prog.take_first()
-            out = prog.replay(args)
+            out = prog.replay(args, call)
             self.replays += 1
             return out
 

@@ -29,6 +29,14 @@ graphs, one per key (``models/programs.py``, the counterpart of
 ``JaxVerifier._prog``'s jitted programs): their bodies, ``_verify_body``
 and ``_rlc_body``, read no value back to the host, so a whole batch is one
 graph launch. The same bodies run eagerly on the CPU.
+
+A body's stages (``_stage``) tile it: ``transcript``, ``decompress`` (with
+the scalar parse), ``subgroup`` where it is not fused into decompression,
+``fr_side`` (child ``fr_pow``, the batch inversion's root), ``multiopen``
+(child ``msm``, each multi-open MSM kernel call) and ``pairing``;
+``_rlc_body`` adds ``rlc_msm``, ``pairing``, ``post``, ``recheck`` and
+``final``. While tracing is on (``utils/tracing.py``) each entry call is
+recorded and the stages are timed, in the graph form as in the eager one.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from ..ops.pairing import prepare_g2
 from ..refimpl.curve import G1_GEN, G2_GEN, g1_neg
 from ..refimpl.field import FR_DELTA, P, Q
 from ..refimpl.multiopen import group_queries_by_rotation
+from ..utils import tracing
 from .layout import build_layout
 from .plan import FLAVOR_HALO2, CircuitPlan, eval_expr, rot_offset
 from .programs import Programs
@@ -233,11 +242,11 @@ class TorchVerifier:
     captured CUDA graph per key (entry point, B, subgroup mode and rounds,
     hinted or not, RLC group and re-check width, device), captured after an
     eager warm-up on the key's first call (models/programs.py); False runs
-    them eagerly, for A/B. They also run eagerly on the card while
-    `timings` is set (the stages' CUDA events bracket eager stages) and
-    while `msm` is replaced (parallel.mesh.verify_2d's point-sharded MSM
-    and its collectives). The CPU always runs them eagerly. A capture or
-    replay that fails raises."""
+    them eagerly, for A/B. They also run eagerly on the card while `msm`
+    is replaced (parallel.mesh.verify_2d's point-sharded MSM and its
+    collectives). The CPU always runs them eagerly. A capture or replay
+    that fails raises. While tracing is on (utils/tracing.enable()) each
+    call of either is recorded, with its stages timed in either form."""
 
     def __init__(self, plan: CircuitPlan, device=None,
                  subgroup_check: bool | str = "aggregate",
@@ -297,7 +306,6 @@ class TorchVerifier:
         # point-sharded MSM over a group's mp axis for the call and restores
         # it; the RLC aggregation stays whole
         self.msm = cuda_curve.msm
-        self.timings: dict | None = None  # set to {} to record per-stage CUDA events
         self.programs = Programs(self)
 
     @classmethod
@@ -351,8 +359,7 @@ class TorchVerifier:
 
     def _graphed(self) -> bool:
         """Whether the entry points replay captured programs (see graphs)."""
-        return (self.graphs and self.device.type == "cuda" and self.timings is None
-                and self.msm is cuda_curve.msm)
+        return self.graphs and self.device.type == "cuda" and self.msm is cuda_curve.msm
 
     def _inputs(self, proof, pis, y_hints, sub_weights):
         """A call's inputs as tensors where they lie, checked on the host:
@@ -392,12 +399,25 @@ class TorchVerifier:
         (the OS's randomness when omitted). sub_weights: those weights drawn
         by the caller (subgroup_weights()), as parallel.mesh hands the same
         weights to every shard of a batch."""
+        if tracing.RECORDER.on:
+            with tracing.RECORDER.call("verify", self.device) as call:
+                return self._verify(proof_bytes, public_inputs, y_hints, generator, sub_weights, call)
+        return self._verify(proof_bytes, public_inputs, y_hints, generator, sub_weights)
+
+    def _verify(self, proof_bytes, public_inputs, y_hints, generator, sub_weights, call=None):
         if sub_weights is None:
             sub_weights = self.subgroup_weights(generator)
         args = self._inputs(proof_bytes, public_inputs, y_hints, sub_weights)
+        return self._run(self._key("verify", args), self._verify_body, args, call)
+
+    def _run(self, key: tuple, body, args, call):
+        """body over args: the key's program on the card, else eagerly on
+        the args moved to the device; `call` (tracing.Call) records it."""
         if self._graphed():
-            return self.programs.run(self._key("verify", args), self._verify_body, args)
-        return self._verify_body(*self._on_device(*args))
+            return self.programs.run(key, body, args, call)
+        if call is None:
+            return body(*self._on_device(*args))
+        return call.run_eager(body, lambda: self._on_device(*args))
 
     def _key(self, entry: str, args, *extra) -> tuple:
         """A program's key: the entry point, B, the subgroup mode and its
@@ -446,6 +466,12 @@ class TorchVerifier:
         handles the overflow. Reads nothing back from the device: the
         re-check's pairing is gated on the device by n_suspects > 0, as
         JaxVerifier gates it with lax.cond."""
+        if tracing.RECORDER.on:
+            with tracing.RECORDER.call("verify_rlc_device", self.device) as call:
+                return self._verify_rlc_device(proof_bytes, public_inputs, weights, y_hints, group, generator, call)
+        return self._verify_rlc_device(proof_bytes, public_inputs, weights, y_hints, group, generator)
+
+    def _verify_rlc_device(self, proof_bytes, public_inputs, weights, y_hints, group, generator, call=None):
         B = torch.as_tensor(proof_bytes).shape[0]
         if group < 1 or B % group:
             raise ValueError(f"batch {B} is not a multiple of group {group}")
@@ -458,11 +484,7 @@ class TorchVerifier:
         def body(*a):
             return self._rlc_body(*a, group=group, R=R)
 
-        if self._graphed():
-            out = self.programs.run(self._key("rlc", args, group, R), body, args)
-        else:
-            out = body(*self._on_device(*args))
-        return (*out, R)
+        return (*self._run(self._key("rlc", args, group, R), body, args, call), R)
 
     def _rlc_body(self, proof, pis, hints, sub_w, weights, *, group: int, R: int):
         """verify_rlc_device's program over _inputs' tensors and the RLC
@@ -472,11 +494,12 @@ class TorchVerifier:
         el, er, all_valid = self.core(proof, pis, hints, None if sub_w is None else CheckedWeights(sub_w))
         el_g, er_g = self._stage("rlc_msm", lambda: self._agg(el, er, all_valid, weights, group))
         group_ok = self._stage("pairing", lambda: cuda_pairing.pairing_check(el_g, er_g, self.pair))
-        verdicts0, n_sus, group_ok, idx, live, el_s, er_s = self._post(
-            group_ok, all_valid, el, er, group, R)
+        verdicts0, n_sus, group_ok, idx, live, el_s, er_s = self._stage(
+            "post", lambda: self._post(group_ok, all_valid, el, er, group, R))
         row_ok = self._stage("recheck", lambda: cuda_pairing.pairing_check(
             el_s, er_s, self.pair, enable=n_sus > 0))
-        return self._final(verdicts0, idx, live, row_ok), n_sus, group_ok, all_valid, el, er
+        verdicts = self._stage("final", lambda: self._final(verdicts0, idx, live, row_ok))
+        return verdicts, n_sus, group_ok, all_valid, el, er
 
     def rlc_finalize(self, verdicts, n_sus, group_ok, all_valid, el, er, R: int) -> np.ndarray:
         """Host tail of verify_rlc: exact verdicts out. Only when more than
@@ -542,17 +565,12 @@ class TorchVerifier:
                                           self.pair).cpu().numpy()
 
     # ------------------------------------------------------------------
-    def _stage(self, name, fn):
-        """Run one stage; with `timings` set, bracket it in CUDA events."""
-        if self.timings is None or self.device.type != "cuda":
-            return fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        self.timings.setdefault(name, []).append((start, end))
-        return out
+    @staticmethod
+    def _stage(name, fn):
+        """Run one stage of a body: the recorder's hook, which marks its
+        bounds while a traced body runs (utils/tracing.Stages)."""
+        stages = tracing.active_stages()
+        return fn() if stages is None else stages.stage(name, fn)
 
     def _fr_from_le_bytes(self, raw):
         """(..., 32) uint8 -> value mod q in Montgomery form."""
@@ -620,26 +638,24 @@ class TorchVerifier:
             return {name: vals[:, s] for s, (name, _l) in enumerate(lay.squeezes)}
 
         ch = self._stage("transcript", transcript)
-
-        # ---- parse proof fields ------------------------------------------
-        scalars = {}
-        if self._sc_idx is not None:
-            sc_vals = self._fr_from_le_bytes(proof[:, self._sc_idx])
-            scalars = {n: sc_vals[:, i, :] for i, n in enumerate(lay.scalar_offsets)}
-
         point_names = list(lay.point_offsets)
 
         def decompress():
+            # the proof's scalar fields, parsed
+            scalars = {}
+            if self._sc_idx is not None:
+                sc_vals = self._fr_from_le_bytes(proof[:, self._sc_idx])
+                scalars = {n: sc_vals[:, i, :] for i, n in enumerate(lay.scalar_offsets)}
             pt_raw = proof[:, self._pt_idx]
             if hints is None:
                 sqrt_fn = lambda rhs: cuda_field.fp_pow(rhs.contiguous(), (FP_SPEC.N + 1) >> 2)  # noqa: E731
-                return (*tc.decompress(pt_raw, sqrt_fn=sqrt_fn), None)
+                return scalars, *tc.decompress(pt_raw, sqrt_fn=sqrt_fn), None
             if self.subgroup_check == "aggregate":
                 # the fused kernel: the subgroup test on the points just decoded
-                return cuda_curve.decompress_hinted(pt_raw, hints, sub_weights)
-            return (*cuda_curve.decompress_hinted(pt_raw, hints), None)
+                return scalars, *cuda_curve.decompress_hinted(pt_raw, hints, sub_weights)
+            return scalars, *cuda_curve.decompress_hinted(pt_raw, hints), None
 
-        pts, pt_valid, sub_ok = self._stage("decompress", decompress)
+        scalars, pts, pt_valid, sub_ok = self._stage("decompress", decompress)
         points = {n: pts[:, i] for i, n in enumerate(point_names)}
         all_valid = pt_valid.all(-1)
         if self.subgroup_check == "exact":
@@ -698,7 +714,7 @@ class TorchVerifier:
                 return self.perm_coms[int(key[6:])].expand(B, 3, FP_SPEC.L)
             return points[key]
 
-        def run_msm(terms, stage="msm"):
+        def run_msm(terms):
             """One MSM over the de-duplicated terms (self.msm: one kernel
             call, or one on each slice of the points; msm_term_counts holds
             the unsharded K)."""
@@ -706,16 +722,19 @@ class TorchVerifier:
             self.msm_term_counts.append(len(terms))
             pts_arr = torch.stack([resolve_point(k) for k, _c in terms], -3).contiguous()
             coeffs = fr.from_mont(torch.stack([c for _k, c in terms], -2)).contiguous()
-            return self._stage(stage, lambda: self.msm(pts_arr, coeffs))
+            return self._stage("msm", lambda: self.msm(pts_arr, coeffs))
+
+        def multiopen():
+            if plan.flavor == FLAVOR_HALO2:
+                el, er_msm = self._multiopen_halo2(plan, ch, scalars, eval_value, com_terms,
+                                                   run_msm, points, set_points, mo_invs)
+            else:
+                el, er_msm = self._multiopen_gwc(plan, ch, eval_value, com_terms, run_msm)
+            return el.contiguous(), tc.neg(er_msm).contiguous()
 
         self.msm_term_counts = []
-        if plan.flavor == FLAVOR_HALO2:
-            el, er_msm = self._multiopen_halo2(plan, ch, scalars, eval_value, com_terms,
-                                               run_msm, points, set_points, mo_invs)
-        else:
-            el, er_msm = self._multiopen_gwc(plan, ch, eval_value, com_terms, run_msm)
-        er = tc.neg(er_msm)
-        return el.contiguous(), er.contiguous(), all_valid
+        el, er = self._stage("multiopen", multiopen)
+        return el, er, all_valid
 
     def _rot_point(self, x, rot):
         """The evaluation point of a rotation: x times omega^offset."""
@@ -770,7 +789,7 @@ class TorchVerifier:
                 mo_slices.append(_pool(torch.stack(dens + [z_den], -2)))
 
         def root_inv(t):
-            return cuda_field.fr_pow(t[:, None, :].contiguous(), Q - 2)[:, 0, :]
+            return self._stage("fr_pow", lambda: cuda_field.fr_pow(t[:, None, :].contiguous(), Q - 2))[:, 0, :]
 
         pooled = fr.batch_inv(torch.cat(inv_blocks, -2), dim=-2, inv_fn=root_inv)
         mo_invs = [pooled[:, a:b, :] for (a, b) in mo_slices]
@@ -921,4 +940,4 @@ class TorchVerifier:
             final_eval = fr.add(final_eval, fr.mul(u_pow, inner))
             u_pow = fr.mul(u_pow, u_ch)
         right_terms.append(("#neg_g1", final_eval))
-        return run_msm(left_terms, "msm_left"), run_msm(right_terms, "msm_right")
+        return run_msm(left_terms), run_msm(right_terms)

@@ -30,14 +30,15 @@ from .curve import BETA
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
-           "subgroup.cu", "mma_probe.cu", "mma_chain.cu", "poly.cu")
+           "subgroup.cu", "mma_probe.cu", "mma_chain.cu", "poly.cu", "graphs.cu")
 HEADERS = ("field.cuh", "lanes.cuh", "curve.cuh", "group.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-# C entry points: (argtypes); every one returns cudaGetLastError() as int
+# C entry points: (argtypes); every one returns a CUDA error code as int (the
+# kernels' launchers cudaGetLastError())
 SIGNATURES = {
     "ph2_mont_mul_fp": (_P, _P, _P, _I, _I, _P),
     "ph2_mont_mul_fr": (_P, _P, _P, _I, _I, _P),
@@ -57,6 +58,9 @@ SIGNATURES = {
     "ph2_fr_mul_array": (_P, _P, _P, _L, _P),
     "ph2_fr_scale_array": (_P, _P, _P, _L, _P),
     "ph2_fr_powers_mul_array": (_P, _P, _L, _P, _I, _I, _P, _P, _P),
+    "ph2_graph_census": (_P, _P, _P, _P, _I, _P),
+    "ph2_graph_set_events": (_P, _P, _P, _I),
+    "ph2_event_record": (_P, _P),
 }
 
 
