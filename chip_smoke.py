@@ -23,7 +23,15 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      NTT stage, product and powers kernels are printed;
   3. field: the Fp and Fr Montgomery-product test kernel against the plain
      PyTorch product on 2^16 random canonical pairs (exactly equal), the Fp
-     kernel timed beside its bound;
+     kernel timed beside its bound; the Fr glue's kernels (``limb.fr`` on
+     the card, ``csrc/fr_glue.cu``) against the plain ``limb.Field`` at the
+     verifier's shapes and B = 1024 (products of broadcast operands,
+     to_mont of values below 2^256, sums, differences, a slice's sum, a
+     dot, the batch inversion's and a pow's chains of products; exactly
+     equal, no layout copy), the product timed beside its bound; every
+     verifier path below prints the glue's launches by op, its layout
+     copies and its Fr ops on the plain path with a CUDA tensor, and fails
+     unless the glue launched and the last two read 0;
   4. kernels: transcript (on the batch's buffers at 4 and at 1 lane a
      compression, at B = 1 and 17; against hashlib with 200 squeezes in
      rounds and on 40 KB and 300 KB transcripts; one compression's latency
@@ -643,7 +651,8 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier
-    from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_pairing
+    from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_fr, cuda_mma, cuda_pairing
+    from plutus_halo2_tpu_torch.ops import limb
     from plutus_halo2_tpu_torch.ops import curve as tc
     from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, limbs_to_int, window_digits
     from plutus_halo2_tpu_torch.refimpl import curve as rc
@@ -653,6 +662,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_run = time.perf_counter()
+    GLUE_OPS = (cuda_fr.mul, cuda_fr.add, cuda_fr.sub, cuda_fr.sum_lazy, cuda_fr.dot_lazy)
 
     def stamp(label):
         print(f"[time] {label}: {time.perf_counter() - t_run:.1f} s into the run")
@@ -693,16 +703,18 @@ def main() -> int:
             print(f"[build] {line.strip()}")
     lane_groups = {r["function"]: r for name in ("msm_kernel", "subgroup_kernel", "pow_kernel", "transcript_kernel",
                                                  "bf16_chain_kernel", "int8_chain_kernel", "mont_mul_kernel",
-                                                 "fr_ntt_stage_kernel", "fr_mul_array_kernel", "fr_powers_")
+                                                 "fr_ntt_stage_kernel", "fr_mul_array_kernel", "fr_powers_",
+                                                 "fr_glue_")
                    for r in _build.kernel_resources(name)}  # subgroup_kernel names the fused decompress too
     for r in lane_groups.values():
         print(f"[build] {r['function']}: {r['registers']} registers, {r['stack_bytes']} bytes stack frame, "
               f"{r['spill_stores']} bytes spill stores, {r['spill_loads']} bytes spill loads")
 
-    def rand_canon(spec, shape):
-        """Random canonical values < N as (shape..., L) limb tensors."""
+    def rand_canon(spec, shape, gen=None):
+        """Random canonical values < N as (shape..., L) limb tensors (from
+        `gen`, the run's generator by default)."""
         n = int(np.prod(shape))
-        raw = rng.integers(0, 256, size=(n, 2 * spec.L), dtype=np.uint8)
+        raw = (gen or rng).integers(0, 256, size=(n, 2 * spec.L), dtype=np.uint8)
         vals = [int.from_bytes(r.tobytes(), "little") % spec.N for r in raw]
         limbs = np.frombuffer(b"".join(v.to_bytes(2 * spec.L, "little") for v in vals),
                               dtype=np.uint16).astype(np.int64)
@@ -742,6 +754,41 @@ def main() -> int:
                    _times(lambda: kern(a, b), "mont_mul_kernel", 20),
                    _call_ms(lambda: cuda_field.mont_mul_plain(a, b, spec), 5),
                    _bound_ms(2 * a.shape[0] * _cios_products(12), 8 * 3 * a.numel()))
+
+    # the Fr glue's kernels against the plain Field, at the verifier's shapes
+    # (their own generator: the later phases draw what they drew before)
+    g_rng = np.random.default_rng(SEED + 1)
+    x, consts, pooled = (rand_canon(FR_SPEC, s, g_rng) for s in ((B,), (1, 36), (B, 40)))
+    below_2_256 = torch.from_numpy(g_rng.integers(0, 1 << 16, size=(B, 41, FR_SPEC.L))).to(dev)
+    below_2_256[..., -1] = 0
+    fr_plain = limb.Field(FR_SPEC)
+    glue_checks = {
+        "mul (B, 1) x (1, 36)": lambda f: f.mul(x[:, None, :], consts),
+        "sub (B, 1) - (1, 36)": lambda f: f.sub(x[:, None, :], consts),
+        "to_mont (B, 41) below 2^256": lambda f: f.to_mont(below_2_256),
+        "from_mont (B, 40)": lambda f: f.from_mont(pooled),
+        "add (B,) + (1,)": lambda f: f.add(x, consts[0, 0]),
+        "neg (B,)": lambda f: f.neg(x),
+        "sum_lazy pooled[:, 1:6]": lambda f: f.sum_lazy(pooled[:, 1:6, :], dim=-2),
+        "dot_lazy (B, 3)": lambda f: f.dot_lazy(pooled[:, 3:6, :], pooled[:, 30:33, :], dim=-2),
+        "batch_inv (B, 40)": lambda f: f.batch_inv(pooled, dim=-2),
+        "pow x^(2^20)": lambda f: f.pow(x, 1 << 20),
+    }
+    copies = cuda_fr.layout_copies
+    for label, fn in glue_checks.items():
+        got, want = fn(limb.fr), fn(fr_plain)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            _fail(f"fr glue {label}: the kernels differ from the plain version on "
+                  f"{int((got != want).any(-1).sum())} elements")
+    if cuda_fr.layout_copies != copies:
+        _fail(f"fr glue: {cuda_fr.layout_copies - copies} layout copies at the verifier's shapes")
+    print(f"[field] fr glue kernels == plain at B = {B}: {', '.join(glue_checks)} ({cuda_fr.THREADS} threads a block, "
+          f"launches {({f.__name__: f.launches for f in GLUE_OPS})}, 0 layout copies)")
+    record("fr_glue", "plutus_halo2_tpu_torch/csrc/fr_glue.cu", "none (the plain-torch Fr glue, ops/limb.py)", 0,
+           _times(lambda: cuda_fr.mul(x[:, None, :], consts), "fr_glue_mul", 20),
+           _call_ms(lambda: fr_plain.mul(x[:, None, :], consts), 5),
+           _bound_ms(2 * B * 36 * _cios_products(8), 8 * FR_SPEC.L * (B + 36 + B * 36)))
 
     stamp("field phase")
 
@@ -1153,15 +1200,19 @@ def main() -> int:
 
     def counted(name, fn, needs):
         """One run of fn with the launch counts set to 0 before it and read
-        after it; every kernel in `needs` must have launched."""
-        for f in counters.values():
+        after it (the Fr glue's five ops as one, "fr_glue"; its layout
+        copies and Fr ops on the plain path too); every kernel in `needs`
+        must have launched."""
+        for f in (*counters.values(), *GLUE_OPS):
             f.launches = 0
+        cuda_fr.layout_copies = cuda_fr.plain_on_cuda = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         launches = {k: f.launches for k, f in counters.items()}
+        launches["fr_glue"] = sum(f.launches for f in GLUE_OPS)
         for k in needs:
             if launches[k] <= 0:
                 _fail(f"path {name}: kernel {k} was not launched")
@@ -1173,6 +1224,12 @@ def main() -> int:
         """One path's first call, counted; its verdicts against the expected
         vector."""
         out, launches, first_s = counted(name, fn, needs)
+        glue = {f.__name__: f.launches for f in GLUE_OPS}
+        print(f"[path] {name}: fr glue launches {glue}, layout copies {cuda_fr.layout_copies}, "
+              f"Fr ops on the plain path with a CUDA tensor {cuda_fr.plain_on_cuda}")
+        if not launches["fr_glue"] or cuda_fr.layout_copies or cuda_fr.plain_on_cuda:
+            _fail(f"path {name}: the Fr glue launched {launches['fr_glue']} kernels, copied "
+                  f"{cuda_fr.layout_copies} operands, sent {cuda_fr.plain_on_cuda} ops to the plain path")
         out = out.cpu().numpy() if torch.is_tensor(out) else np.asarray(out)
         if not np.array_equal(out, want):
             _fail(f"path {name}: verdicts differ from the expected vector at rows "
@@ -1824,7 +1881,7 @@ def main() -> int:
     print(f"[health] Xid: {xid}")
     print(json.dumps({"kernels": [results[n] for n in (
         "transcript", "pow_fr", "pow_fp", "msm", "pairing", "decompress", "subgroup", "mont_mul", "int8_dot",
-        "int8_chain", "bf16_chain") + POLY_KERNELS]}))
+        "int8_chain", "bf16_chain", "fr_glue") + POLY_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

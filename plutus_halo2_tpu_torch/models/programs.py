@@ -39,15 +39,17 @@ re-pointed to its own events (``Program.replay``)."""
 from __future__ import annotations
 
 import ctypes
+import gc
 
 import torch
 
-from ..ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_pairing
+from ..ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_fr, cuda_pairing
 from ..utils import tracing
 
 # the kernel wrappers a program body can launch, whose `launches` a replay adds to
 COUNTED = (cuda_blake.transcript_hashes, cuda_field.fr_pow, cuda_field.fp_pow, cuda_curve.msm,
-           cuda_curve.decompress_hinted, cuda_curve.aggregate_subgroup_check, cuda_pairing.pairing_check)
+           cuda_curve.decompress_hinted, cuda_curve.aggregate_subgroup_check, cuda_pairing.pairing_check,
+           cuda_fr.mul, cuda_fr.add, cuda_fr.sub, cuda_fr.sum_lazy, cuda_fr.dot_lazy)
 
 
 def _counts() -> list[int]:
@@ -125,8 +127,17 @@ class Program:
         before = _counts()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the census and the stage nodes
         stages = tracing.CaptureStages() if traced else None
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = body(*self._statics()) if stages is None else stages.run(body, *self._statics())
+        # no cyclic collection inside the capture: one that frees an
+        # unreachable verifier destroys its graphs, which the capturing
+        # thread may not do (the capture fails); it runs after instead
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out = body(*self._statics()) if stages is None else stages.run(body, *self._statics())
+        finally:
+            if gc_on:
+                gc.enable()
         self.nodes, marks, handles = census(self.graph.raw_cuda_graph(), 0 if stages is None else 2 * stages.count)
         self.stage_plan = None if stages is None else [tuple(p) for p in stages.plan]
         if stages is not None:

@@ -21,8 +21,9 @@ pairing per group of rows on random-linear-combination aggregates (the MSM
 kernel at K = group), re-checking the rows of failing groups exactly.
 
 On a CUDA device the stages named above run as the hand-written kernels of
-``csrc/``; the O(1)-per-proof glue between them is batched torch code
-(``ops/limb.py``). On the CPU every stage runs its plain version.
+``csrc/``; the O(1)-per-proof glue between them is batched torch code whose
+Fr field ops are one kernel launch each (``limb.fr``: ``ops/cuda_fr.py``
+over ``csrc/fr_glue.cu``). On the CPU every stage runs its plain version.
 
 On the card ``verify()`` and ``verify_rlc_device()`` run as captured CUDA
 graphs, one per key (``models/programs.py``, the counterpart of

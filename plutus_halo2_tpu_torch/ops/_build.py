@@ -24,13 +24,11 @@ import time
 from pathlib import Path
 
 from ..refimpl.field import BLS_X, P, Q
-from . import pairing_program
-from .curve import BETA
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
-           "subgroup.cu", "mma_probe.cu", "mma_chain.cu", "poly.cu", "graphs.cu")
+           "subgroup.cu", "mma_probe.cu", "mma_chain.cu", "poly.cu", "graphs.cu", "fr_glue.cu")
 HEADERS = ("field.cuh", "lanes.cuh", "curve.cuh", "group.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -61,6 +59,7 @@ SIGNATURES = {
     "ph2_graph_census": (_P, _P, _P, _P, _I, _P),
     "ph2_graph_set_events": (_P, _P, _P, _I),
     "ph2_event_record": (_P, _P),
+    "ph2_fr_glue": (_I, _P, _P, _P, _P, _I, _P),
 }
 
 
@@ -87,8 +86,14 @@ def field_consts_header() -> str:
     the cube root of unity beta of the subgroup test; R^3 mod p (plain
     words), which turns the pairing kernel's Euclidean inverse into the
     Montgomery domain; R^2 mod q (plain words), the poly kernels' second
-    factor in a product of two canonical arrays; and the pairing kernel's
-    row layout, program ids and slot-reference bases."""
+    factor in a product of two canonical arrays; 2^288 and 2^304 mod q
+    (plain words), the Fr glue kernels' factors that reduce a wide sum; and
+    the pairing kernel's row layout, program ids and slot-reference bases."""
+    # imported here: they import ops/limb.py, which imports ops/cuda_fr.py
+    # and so this module
+    from . import pairing_program
+    from .curve import BETA
+
     out = ["// generated by plutus_halo2_tpu_torch/ops/_build.py — do not edit\n",
            "#pragma once\n#include <cstdint>\n"]
     for name, mod, nw, l16 in (("FP", P, 12, 25), ("FR", Q, 8, 17)):
@@ -106,6 +111,8 @@ def field_consts_header() -> str:
     out.append(_arr("FP_BETA", kernel_fp(BETA)))
     out.append(_arr("FP_R3", words(pow(2, 3 * 384, P), 12)))
     out.append(_arr("FR_R2K", words(pow(2, 512, Q), 8)))
+    out.append(_arr("FR_W288", words(pow(2, 288, Q), 8)))
+    out.append(_arr("FR_W304", words(pow(2, 304, Q), 8)))
     out.append(f"static constexpr uint64_t BLS_X_ABS = 0x{BLS_X:016x}ull;\n")
     out.append(pairing_program.kernel_header())
     return "".join(out)

@@ -18,9 +18,12 @@ dims (no per-limb Python loop):
     T' = (T + m N) / R, with the conditional subtraction of N resolved in
     the same carry pass as T' (both candidates normalised side by side).
 
-These are the plain versions of the CUDA kernels in ``csrc/``; on the card
-the verifier's hot stages run as kernels and only the O(1)-per-proof scalar
-side uses this module directly.
+These are the plain versions of the CUDA kernels in ``csrc/``. On the card
+the verifier's hot stages run as kernels, and so does every op of ``fr``
+(``FrField``: one launch of ``csrc/fr_glue.cu`` an op, ``ops/cuda_fr.py``);
+the functions here stay the CPU path, the tests' reference and the Fp
+path. ``mont_mul``, ``add`` and ``sub`` count the Fr calls that reach them
+with a CUDA tensor (``cuda_fr.plain_on_cuda``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..refimpl.field import P, Q
+from . import cuda_fr
 
 MASK16 = 0xFFFF
 
@@ -86,6 +90,7 @@ class FieldSpec:
             "r2": self.r2_limbs,
             "csub": csub,
             "unit": int_to_limbs(1, limbs),
+            "zero": int_to_limbs(0, limbs),
         }
         self._dev: dict = {}
 
@@ -190,7 +195,13 @@ def _pick(both, flag_idx: int, L: int, k: int):
     return torch.where(hit, both[k][..., :L], both[1 - k][..., :L])
 
 
+def _count_cuda(spec: FieldSpec, a):
+    if spec is FR_SPEC and a.is_cuda:
+        cuda_fr.plain_on_cuda += 1
+
+
 def add(spec: FieldSpec, a, b):
+    _count_cuda(spec, a)
     s = F.pad(a + b, (0, 1))  # value < 2N < R
     both = torch.stack(torch.broadcast_tensors(s, s + spec.const("neg_n_ext", s.device)))
     # s + (R - N) >= R  <=>  s >= N
@@ -198,6 +209,7 @@ def add(spec: FieldSpec, a, b):
 
 
 def sub(spec: FieldSpec, a, b):
+    _count_cuda(spec, a)
     # c = a - b + R with non-negative columns (complement of b, plus one)
     c = F.pad(a + (MASK16 - b), (0, 1)) + F.pad(spec.const("unit", a.device), (0, 1))
     both = torch.stack([c, c + spec.const("n_ext", c.device)])
@@ -212,6 +224,7 @@ def neg(spec: FieldSpec, a):
 def mont_mul(spec: FieldSpec, a, b):
     """Montgomery product a*b/R mod N of (..., L) limb tensors (limbs may be
     lazy up to ~2^16 + 2^8 as long as a*b < R*N)."""
+    _count_cuda(spec, a)
     L = spec.L
     dev = a.device
     a, b = torch.broadcast_tensors(a, b)
@@ -229,28 +242,30 @@ def mont_sqr(spec: FieldSpec, a):
     return mont_mul(spec, a, a)
 
 
-def mont_pow_static(spec: FieldSpec, a, exponent: int):
+def mont_pow_static(spec: FieldSpec, a, exponent: int, mul=None):
     """a^exponent (Montgomery domain) for a static exponent: a 4-bit fixed
     window over a 16-entry power table, MSB first — the decomposition of the
-    pow kernel (``csrc/pow.cu``)."""
+    pow kernel (``csrc/pow.cu``). `mul`: the product (a Field's; the plain
+    one by default)."""
+    mul = mul or (lambda x, y: mont_mul(spec, x, y))
     one = torch.broadcast_to(spec.const("one_mont", a.device), a.shape)
     if exponent == 0:
         return one.clone()
     tab = [one, a]
     for _ in range(14):
-        tab.append(mont_mul(spec, tab[-1], a))
+        tab.append(mul(tab[-1], a))
     digits = window_digits(exponent)
     acc = tab[digits[0]]
     for d in digits[1:]:
         for _ in range(4):
-            acc = mont_sqr(spec, acc)
-        acc = mont_mul(spec, acc, tab[d])
+            acc = mul(acc, acc)
+        acc = mul(acc, tab[d])
     return acc
 
 
-def mont_inv(spec: FieldSpec, a):
+def mont_inv(spec: FieldSpec, a, mul=None):
     """a^-1 via Fermat (exponent N-2)."""
-    return mont_pow_static(spec, a, spec.N - 2)
+    return mont_pow_static(spec, a, spec.N - 2, mul)
 
 
 def to_mont(spec: FieldSpec, a):
@@ -279,23 +294,25 @@ def sum_lazy(spec: FieldSpec, a, dim=-2):
     return reduce_lazy(spec, a.sum(dim))
 
 
-def batch_inv(spec: FieldSpec, xs, dim: int = -2, inv_fn=None):
+def batch_inv(spec: FieldSpec, xs, dim: int = -2, inv_fn=None, mul=None):
     """Montgomery-trick batch inversion along a static dim (the reference's
     batchInverses, LagrangePolynomialEvaluation.hs:60-76) with one inversion
     at the root (`inv_fn`, e.g. the pow kernel; Fermat by default). Zero
-    inputs produce zeros (callers guard)."""
+    inputs produce zeros (callers guard). `mul`: the product (a Field's; the
+    plain one by default)."""
+    mul = mul or (lambda x, y: mont_mul(spec, x, y))
     xs_m = torch.movedim(xs, dim, 0)  # (K, ..., L)
     K = xs_m.shape[0]
     acc = torch.broadcast_to(spec.const("one_mont", xs.device), xs_m.shape[1:])
     prefix = []
     for k in range(K):
         prefix.append(acc)  # exclusive prefix products
-        acc = mont_mul(spec, acc, xs_m[k])
-    inv = (inv_fn or (lambda t: mont_inv(spec, t)))(acc)
+        acc = mul(acc, xs_m[k])
+    inv = (inv_fn or (lambda t: mont_inv(spec, t, mul)))(acc)
     out = [None] * K
     for k in range(K - 1, -1, -1):
-        out[k] = mont_mul(spec, inv, prefix[k])
-        inv = mont_mul(spec, inv, xs_m[k])
+        out[k] = mul(inv, prefix[k])
+        inv = mul(inv, xs_m[k])
     return torch.movedim(torch.stack(out), 0, dim)
 
 
@@ -313,7 +330,8 @@ def select(cond, a, b):
 
 
 class Field:
-    """Thin bound wrapper so call sites read fr.mul(a, b)."""
+    """Thin bound wrapper so call sites read fr.mul(a, b): the plain
+    functions above (pow, inv and batch_inv over the Field's own mul)."""
 
     def __init__(self, spec: FieldSpec):
         self.spec = spec
@@ -336,10 +354,10 @@ class Field:
         return mont_sqr(self.spec, a)
 
     def pow(self, a, e: int):
-        return mont_pow_static(self.spec, a, e)
+        return mont_pow_static(self.spec, a, e, self.mul)
 
     def inv(self, a):
-        return mont_inv(self.spec, a)
+        return mont_inv(self.spec, a, self.mul)
 
     def to_mont(self, a):
         return to_mont(self.spec, a)
@@ -363,7 +381,7 @@ class Field:
         return t
 
     def batch_inv(self, xs, dim=-2, inv_fn=None):
-        return batch_inv(self.spec, xs, dim, inv_fn=inv_fn)
+        return batch_inv(self.spec, xs, dim, inv_fn=inv_fn, mul=self.mul)
 
     def dot_lazy(self, a, b, dim=-2):
         return dot_lazy(self.spec, a, b, dim)
@@ -378,5 +396,40 @@ class Field:
         return self.spec.const("one_mont", device).expand(*shape, self.spec.L).clone()
 
 
-fr = Field(FR_SPEC)
+class FrField(Field):
+    """Fr: an op on a CUDA tensor is one launch of its hand-written kernel
+    (``ops/cuda_fr.py``, ``csrc/fr_glue.cu``), the same limbs as the plain
+    function, which an op on a CPU tensor runs (the rule of
+    ``cuda_field.fr_pow``). pow, inv and batch_inv keep their structure,
+    each product a launch."""
+
+    def add(self, a, b):
+        return cuda_fr.add(a, b) if a.is_cuda else super().add(a, b)
+
+    def sub(self, a, b):
+        return cuda_fr.sub(a, b) if a.is_cuda else super().sub(a, b)
+
+    def neg(self, a):
+        return cuda_fr.sub(self.spec.const("zero", a.device), a) if a.is_cuda else super().neg(a)
+
+    def mul(self, a, b):
+        return cuda_fr.mul(a, b) if a.is_cuda else super().mul(a, b)
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def to_mont(self, a):
+        return self.mul(a, self.spec.const("r2", a.device))
+
+    def from_mont(self, a):
+        return self.mul(a, self.spec.const("unit", a.device))
+
+    def dot_lazy(self, a, b, dim=-2):
+        return cuda_fr.dot_lazy(a, b, dim) if a.is_cuda else super().dot_lazy(a, b, dim)
+
+    def sum_lazy(self, a, dim=-2):
+        return cuda_fr.sum_lazy(a, dim) if a.is_cuda else super().sum_lazy(a, dim)
+
+
+fr = FrField(FR_SPEC)
 fp = Field(FP_SPEC)

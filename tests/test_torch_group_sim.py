@@ -2,8 +2,8 @@
 csrc/decompress.cu and csrc/subgroup.cu over csrc/group.cuh; csrc/pow.cu
 over csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16 and
 int8 chains, csrc/mma_chain.cu; the Montgomery-product test kernel,
-csrc/field_test.cu; the prover's Fr polynomial kernels, csrc/poly.cu) run
-on the CPU: their sources compiled by g++ through
+csrc/field_test.cu; the prover's Fr polynomial kernels, csrc/poly.cu; the
+verifier's Fr glue kernels, csrc/fr_glue.cu) run on the CPU: their sources compiled by g++ through
 a small CUDA shim and run with one thread per lane, __syncwarp a barrier
 of the lane's group, __syncthreads one of the block, a shuffle or a ballot
 an exchange through the group's slots between two such barriers (a 64-bit
@@ -31,8 +31,11 @@ at ragged counts, one and several blocks, the slabs 0 or 8 bytes past a
 (ph2_fr_ntt and the three elementwise ones, each launch a grid of CPU
 threads at the launch's own geometry: bit reversal, powers tables,
 twiddles, one launch a stage) word for word with ops/poly.py's plain
-versions at sizes from 1 to 2^12 and ragged lengths; the mma emulations
-themselves with a numpy product.
+versions at sizes from 1 to 2^12 and ragged lengths; the Fr glue through
+its entry point on ops/cuda_fr.layout's geometry limb for limb with
+ops/limb.py's mont_mul, add, sub, sum_lazy and dot_lazy (broadcast and
+strided operands, ragged counts in one and several blocks, the domain's
+edges); the mma emulations themselves with a numpy product.
 This checks the kernels' scheduling and arithmetic (units over lanes,
 batches, barriers, shuffles and carry lookaheads, shared-memory layout),
 not the card's compiler; needs g++ with C++20."""
@@ -48,7 +51,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_mma, cuda_poly  # noqa: E402
+from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_fr, cuda_mma, cuda_poly  # noqa: E402
+from plutus_halo2_tpu_torch.ops import limb  # noqa: E402
 from plutus_halo2_tpu_torch.ops import poly as tpoly  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, window_digits  # noqa: E402
@@ -217,6 +221,7 @@ alignas(16) uint32_t smem[1 << 16];
 // poly.cu's launches, each a grid of CPU threads (defined below run_grid)
 template <class F> void sim_launch(unsigned blocks, int threads, F body);
 #include "poly.cu"
+#include "fr_glue.cu"
 
 template <class T> std::vector<T> readf(const char* path, size_t n) {
   std::vector<T> v(n);
@@ -346,6 +351,18 @@ int main(int argc, char** argv) {
     writef("out.bin", out);
     return 0;
   }
+  if (argv[1][0] == 'g') {  // the Fr glue: op, threads; a's and b's words and first-limb offsets
+    const int op = atoi(argv[2]), threads = atoi(argv[3]);
+    const size_t na = atol(argv[4]), oa = atol(argv[5]), nb = atol(argv[6]), ob = atol(argv[7]);
+    auto a = readf<int64_t>("a.bin", na), b = readf<int64_t>("b.bin", nb);
+    auto geom = readf<int64_t>("geom.bin", 12);
+    std::vector<int64_t> out((size_t)geom[0] * FrT::L16 + 1, -7);  // a sentinel past the rows
+    if (ph2_fr_glue(op, a.data() + oa, b.data() + ob, out.data(), geom.data(), threads, nullptr)) return 5;
+    if (out.back() != -7) return 4;
+    out.pop_back();
+    writef("out.bin", out);
+    return 0;
+  }
   if (argv[1][0] == 'x') {  // one m16n8k16 product from every lane's fragments
     auto frag = readf<uint32_t>("frag.bin", 32 * 6);
     auto acc = readf<float>("acc.bin", 32 * 4);
@@ -443,7 +460,7 @@ def sim(tmp_path_factory):
         if name in ("group.cuh", "field_test.cu"):
             text = text.replace("fp_add_cc(", "f_add<FpT>(").replace("fp_sub_cc(", "f_sub<FpT>(")
             text = text.replace("fp_mul_cc(", "f_mul<FpT>(")
-        if name == "poly.cu":  # its host entry points run: each launch a grid of CPU threads
+        if name in ("poly.cu", "fr_glue.cu"):  # host entry points run: each launch a grid of CPU threads
             text = re.sub(r"(\w+)<<<(.*?), (\w+), 0, [^;]*?>>>\((.*?)\);", r"sim_launch(\2, \3, [&] { \1(\4); });",
                           text, flags=re.S)
         text = re.sub(r"<<<[^;]*?>>>", "", text, flags=re.S)  # launches: the harness calls the kernels
@@ -814,3 +831,94 @@ def test_poly_elementwise_on_cpu_threads(sim, op, n):
         want = tpoly.powers_mul_array_plain(a, k)
     got = np.fromfile(sim / "out.bin", np.uint32).reshape(n, 8)
     assert np.array_equal(got, _u32(want))
+
+
+def _fr_mont(vals):
+    """Fr values -> (len, 17) Montgomery limbs."""
+    return torch.from_numpy(np.stack([FR_SPEC.to_mont(v) for v in vals]))
+
+
+def _fr_rand(rng, n):
+    """n Fr values: 0, 1 and N - 1 first, then random ones."""
+    return ([0, 1, FR_SPEC.N - 1] + [int.from_bytes(rng.bytes(32), "little") % FR_SPEC.N for _ in range(n)])[:n]
+
+
+def _glue_case(name, rng):
+    """(op, a, b, dim) of the glue's shapes, strides and domain edges."""
+    N, L = FR_SPEC.N, FR_SPEC.L
+    if name == "mul_bcast":  # x[:, None, :] against (1, K, L) constants, one block
+        return "mul", _fr_mont(_fr_rand(rng, 3))[:, None, :], _fr_mont(_fr_rand(rng, 5))[None], None
+    if name == "mul_bcast_blocks":  # three leading dims that do not coalesce; ragged, several blocks
+        a = _fr_mont(_fr_rand(rng, 9)).reshape(3, 1, 3, L)
+        return "mul", a, _fr_mont(_fr_rand(rng, 7)[::-1]).reshape(1, 7, 1, L), None
+    if name == "to_mont_edges":  # values up to 2^256 - 1 times R^2, and lazy limbs at 2^16 + 2^8 times < N
+        canon = [0, 1, N - 1, (1 << 256) - 1, (1 << 256) - 2] + [int.from_bytes(rng.bytes(32), "little")
+                                                                for _ in range(4)]
+        a = torch.from_numpy(np.stack([limb.int_to_limbs(v, L) for v in canon]))
+        lazy = torch.full((4, L), (1 << 16) + (1 << 8), dtype=torch.int64)
+        lazy[:, L - 1] = 0
+        lazy[1, :8] = 0xFFFF
+        a = torch.cat([a, lazy])
+        b = torch.cat([torch.from_numpy(FR_SPEC.r2_limbs)[None].expand(len(canon), L), _fr_mont(_fr_rand(rng, 4))])
+        return "mul", a, b, None
+    if name == "add_vec":  # (B, L) against (L,), N - 1 + N - 1 among them
+        return "add", _fr_mont(_fr_rand(rng, 40)), _fr_mont([N - 1])[0], None
+    pooled = _fr_mont(_fr_rand(rng, 6 * 7)[::-1]).reshape(6, 7, L)
+    if name == "sub_slices":  # pooled[:, a:b, :] against x[:, None, :]
+        return "sub", pooled[:, 2:5, :], _fr_mont(_fr_rand(rng, 6))[:, None, :], None
+    if name == "sub_rows":  # vals[:, s] against a (B, L) row
+        return "sub", pooled[:, 3], _fr_mont(_fr_rand(rng, 6)), None
+    if name == "neg":  # sub(0, a)
+        return "sub", torch.zeros(L, dtype=torch.int64), _fr_mont(_fr_rand(rng, 33)), None
+    if name == "sum_slice":  # basis_van[:, 1 : 1 + bf, :] over dim -2
+        return "sum_lazy", _fr_mont(_fr_rand(rng, 5 * 9)).reshape(5, 9, L)[:, 1:7, :], None, -2
+    if name == "sum_max":  # the plain version's bound: 2^15 - 1 copies of N - 1
+        return "sum_lazy", _fr_mont([N - 1])[None].expand(2, (1 << 15) - 1, L), None, 1
+    if name == "dot":  # instance_eval: (B, K, L) . (B, K, L), one operand strided
+        b = _fr_mont(_fr_rand(rng, 4 * 6 * 2)[::-1]).reshape(4, 6, 2, L)[:, :, 1, :]
+        return "dot_lazy", _fr_mont(_fr_rand(rng, 4 * 6)).reshape(4, 6, L), b, -2
+    if name == "limb_strided":  # an element's limbs 12 words apart: copied
+        a = _fr_mont(_fr_rand(rng, 12)).T.contiguous().T.reshape(3, 4, L)
+        return "mul", a, _fr_mont(_fr_rand(rng, 4)), None
+    # five leading dims that do not coalesce: both operands copied
+    b = _fr_mont(_fr_rand(rng, 2 * 3 * 2 * 5)).reshape(2, 3, 1, 2, 5, L).permute(4, 1, 2, 0, 3, 5)
+    return "mul", b, _fr_mont(_fr_rand(rng, 1)), None
+
+
+GLUE_PLAIN = {"mul": limb.mont_mul, "add": limb.add, "sub": limb.sub}
+
+
+@pytest.mark.parametrize("name,threads,copies", [
+    ("mul_bcast", 32, 0), ("mul_bcast_blocks", 32, 0), ("to_mont_edges", 64, 0), ("add_vec", 32, 0),
+    ("sub_slices", 64, 0), ("sub_rows", 32, 0), ("neg", 32, 0), ("sum_slice", 32, 0), ("sum_max", 32, 0), ("dot", 128, 0),
+    ("limb_strided", 32, 1), ("five_dims", 64, 2),
+])
+def test_fr_glue_kernels_on_cpu_threads(sim, name, threads, copies):
+    """csrc/fr_glue.cu's entry point on the geometry its wrapper gives
+    (cuda_fr.layout: the broadcast operands' strides, the dims coalesced,
+    the copies counted) limb for limb against ops/limb.py's plain versions,
+    with no word written past the output's rows: broadcast and strided
+    operands at ragged counts in one and several blocks; 0, 1 and N - 1;
+    to_mont of values up to 2^256 - 1, products of lazy limbs at 2^16 +
+    2^8; a sum of 2^15 - 1 copies of N - 1."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    op, a, b, dim = _glue_case(name, rng)
+    b = a if b is None else b
+    before = cuda_fr.layout_copies
+    a2, b2, shape, geom = cuda_fr.layout(a, b, dim)
+    assert cuda_fr.layout_copies - before == copies
+    files = []
+    for t, f in ((a2, "a.bin"), (b2, "b.bin")):
+        flat = t.as_strided((t.untyped_storage().nbytes() // 8,), (1,), 0).contiguous()
+        flat.numpy().tofile(sim / f)
+        files += [flat.numel(), t.storage_offset()]
+    np.array(geom, np.int64).tofile(sim / "geom.bin")
+    _run(sim, "g", cuda_fr.OPS.index(op), threads, *files)
+    got = np.fromfile(sim / "out.bin", np.int64).reshape(shape)
+    if op in GLUE_PLAIN:
+        want = GLUE_PLAIN[op](FR_SPEC, a, b)
+    elif op == "sum_lazy":
+        want = limb.sum_lazy(FR_SPEC, a, dim)
+    else:
+        want = limb.dot_lazy(FR_SPEC, a, b, dim)
+    assert np.array_equal(got, want.numpy())
