@@ -60,10 +60,11 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      need (the probe kernels' at the tensor cores' peak rates);
      ``torch._int_mm`` is timed beside the int8 product by the device time
      of every kernel it launches; then the MSM at the circuits' multi-open
-     K = 3, 17, 19, 32, 36 on random points (the per-point references the
-     prefix sums of one pass of products), and the fused decompress kernel
-     at the proof points of simple_mul GWC19 (K = 11), lookup_table (15)
-     and atms_with_lookups (18), crafted as at K = 10: each against its
+     K = 3, 4, 17, 19, 32, 36, 38 on random points (the per-point references
+     the prefix sums of one pass of products), and the fused decompress
+     kernel at the proof points of simple_mul GWC19 (K = 11), lookup_table
+     (15), atms_with_lookups (18) and atms_with_lookups_50_90_gwc19 (20),
+     crafted as at K = 10: each against its
      plain versions on the same (B = 1024, K) tensors that are then timed
      and bounded;
   5. the paths, each on B = 1024 rows: a mixed batch of the committed
@@ -805,7 +806,7 @@ def main() -> int:
     # the circuits phase's sets: the GWC19 flavor of simple_mul (the port's
     # own committed set), the lookup and ATMS circuits (the JAX package's)
     sets = {n: load_set(n) for n in ("simple_mul_gwc19", "lookup_table", "atms", "atms_with_lookups",
-                                     "atms_228_408")}
+                                     "atms_228_408", "atms_with_lookups_50_90_gwc19")}
     set_verifiers = {}
 
     def set_verifier(name):
@@ -1148,21 +1149,22 @@ def main() -> int:
     # the MSM and the fused decompress kernel at the circuits phase's shapes,
     # each held against its plain versions on the full (B, K) tensors that
     # are then timed and bounded. The MSM at the multi-open K of the GWC19
-    # flavor (3, 17) and of the lookup and ATMS circuits (19, 32, 36), on
-    # random points (identities among them) and scalars (a zero, a q - 1);
-    # the per-point references are the prefix sums of one pass of products,
+    # flavor (simple_mul's 3 and 17, ATMS 50/90 with lookups' 4 and 38) and
+    # of the halo2-book lookup and ATMS circuits (19, 32, 36), on random
+    # points (identities among them) and scalars (a zero, a q - 1); the
+    # per-point references are the prefix sums of one pass of products,
     # kept also at the mp-2 slices' K (9, 16, 18) that phase 6e times
-    pts_c = pt_tab[torch.from_numpy(rng.integers(0, len(host_pts), size=(B, 36))).to(dev)].contiguous()
-    sc_c = rand_canon(FR_SPEC, (B, 36))
+    pts_c = pt_tab[torch.from_numpy(rng.integers(0, len(host_pts), size=(B, 38))).to(dev)].contiguous()
+    sc_c = rand_canon(FR_SPEC, (B, 38))
     sc_c[0, 1] = 0
     sc_c[1, 2] = torch.from_numpy(FR_SPEC.encode(Q - 1)).to(dev)
     products = tc.mul(pts_c, sc_c)
     acc, refs = products[:, 0], {}
-    for j in range(1, 36):
+    for j in range(1, 38):
         acc = tc.add(acc, products[:, j])
-        if j + 1 in (3, 9, 16, 17, 18, 19, 32, 36):
+        if j + 1 in (3, 4, 9, 16, 17, 18, 19, 32, 36, 38):
             refs[j + 1] = tc.to_affine(acc)
-    for k in (3, 17, 19, 32, 36):
+    for k in (3, 4, 17, 19, 32, 36, 38):
         pts_k, sc_k = pts_c[:, :k].contiguous(), sc_c[:, :k].contiguous()
         plain_ms = msm_check(pts_k, sc_k, ref=refs[k])[2]
         times = _times(lambda: cuda_curve.msm(pts_k, sc_k), "msm_kernel", 10)
@@ -1170,8 +1172,9 @@ def main() -> int:
         print(f"[kernel] msm at ({B}, {k}): exact (plain {plain_ms:.3f} ms), {times[0]:.4f} ms device, "
               f"{times[1]:.4f} ms per call, bound {bound[0]:.5f} ms by {bound[1]} (ratio {times[0] / bound[0]:.1f})")
     # the fused decompress kernel at the proof points of simple_mul GWC19
-    # (11), lookup_table (15) and atms_with_lookups (18), crafted as above
-    for name in ("simple_mul_gwc19", "lookup_table", "atms_with_lookups"):
+    # (11), lookup_table (15), atms_with_lookups (18) and
+    # atms_with_lookups_50_90_gwc19 (20), crafted as above
+    for name in ("simple_mul_gwc19", "lookup_table", "atms_with_lookups", "atms_with_lookups_50_90_gwc19"):
         raw_c, hints_c, dec_c, mem_c = crafted_rows(set_verifier(name), sets[name][1], B)
         k = raw_c.shape[1]
         w_c = tc.subgroup_weights(k, 1, torch.Generator().manual_seed(SEED + k))
@@ -1777,7 +1780,7 @@ def main() -> int:
                   f"{dmesh}")
             run_path("mesh 1' data_parallel_verify over the process group", lambda: pm.data_parallel_verify(
                 default, dmesh, proof_t, pis_t, sub_rng=gen), expected, hintless)
-            for k, (pts_k, sc_k) in ((16, (pts, sc)), (36, (pts_c, sc_c))):
+            for k, (pts_k, sc_k) in ((16, (pts, sc)), (36, (pts_c[:, :36].contiguous(), sc_c[:, :36].contiguous()))):
                 one = pm.sharded_msm(pm.make_mesh([dev_d] * 2, axis="shard"), pts_k[0], sc_k[0])
                 if not all(torch.equal(x, y) for x, y in zip(tc.to_affine(one[None]),
                                                              tc.to_affine(cuda_curve.msm(pts_k[:1], sc_k[:1])))):

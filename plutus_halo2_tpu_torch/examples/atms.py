@@ -10,7 +10,8 @@ Usage: python3 -m plutus_halo2_tpu_torch.examples.atms [gwc_kzg] [--lookups]
 
 At 90 parties and threshold 50 (the reference's benchmark scale,
 README.md:220-221) it writes the sets ``atms_50_90_*`` and
-``atms_with_lookups_50_90_*`` that the bench reads.
+``atms_with_lookups_50_90_*`` that the bench reads; under ``gwc_kzg`` a
+set's name ends in ``_gwc19`` (``atms_with_lookups_50_90_gwc19_*``).
 """
 
 from __future__ import annotations
@@ -28,12 +29,15 @@ from ._common import device_of, device_verify, parser, write_set
 MSG = 424242
 
 
-def set_name(parties: int, threshold: int, lookups: bool) -> str:
+def set_name(parties: int, threshold: int, lookups: bool, flavor: str = FLAVOR_HALO2) -> str:
     name = "atms_with_lookups" if lookups else "atms"
     if (parties, threshold) != (2, 1):
         # non-default scale (e.g. the reference's 50/90 and 228/408 benchmark
         # scales, README.md:220-221): keep the default artifacts intact
         name = f"{name}_{threshold}_{parties}"
+    if flavor == FLAVOR_GWC:
+        # as simple_mul_gwc19: a GWC19 set never overwrites a halo2-book one
+        name = f"{name}_gwc19"
     return name
 
 
@@ -68,7 +72,7 @@ def main(argv=None):
     flavor = FLAVOR_GWC if args.flavor == "gwc_kzg" else FLAVOR_HALO2
     dev = device_of(args)
     n_parties, threshold, msg = args.parties, args.threshold, MSG
-    name = set_name(n_parties, threshold, args.lookups)
+    name = set_name(n_parties, threshold, args.lookups, flavor)
     print(f"circuit: {name}  flavor: {flavor}  parties: {n_parties}  threshold: {threshold}")
     made = prove_set(n_parties, threshold, args.lookups, flavor, dev)
     plan, proof, inputs = made["plan"], made["proof"], made["inputs"]

@@ -30,11 +30,14 @@ that fails raises: there is no eager fallback.
 
 At capture a program counts its graph's nodes by type (``nodes``: kernel,
 memcpy, memset, event and other nodes), the in-program count of the
-kernels a replay runs. While tracing is on (``utils/tracing.py``) a key is
-captured apart from its untraced twin, with an event-record node at each
-stage boundary, and each replay is a traced call: its spans, its device
-events before the staging and after the clones, and the stage nodes
-re-pointed to its own events (``Program.replay``)."""
+kernels a replay runs, and keeps the de-duplicated K of each of the body's
+MSM calls (``msm_term_counts``: the multi-open's, one a side under GWC19,
+then the RLC aggregation's); a traced call carries both. While tracing is
+on (``utils/tracing.py``) a key is captured apart from its untraced twin,
+with an event-record node at each stage boundary, and each replay is a
+traced call: its spans, its device events before the staging and after
+the clones, and the stage nodes re-pointed to its own events
+(``Program.replay``)."""
 
 from __future__ import annotations
 
@@ -188,7 +191,7 @@ class Program:
             with call.span("ph2.load"):
                 call.event(tracing.CALL_START)
                 self._load(args)
-            call.plan, call.nodes = self.stage_plan, self.nodes
+            call.plan, call.nodes, call.msm_terms = self.stage_plan, self.nodes, tuple(self.msm_term_counts)
             n = len(self.mark_nodes)
             _build.check(_build.library().ph2_graph_set_events(self.exec_ptr, ctypes.addressof(self.mark_nodes),
                                                                call.marks(n), n), "ph2_graph_set_events")
@@ -224,7 +227,7 @@ class Programs:
             if prog is None:
                 prog = self.cache[key] = Program(self.verifier, body, args, traced=call is not None)
                 if call is not None:
-                    call.captured, call.nodes = True, prog.nodes
+                    call.captured, call.nodes, call.msm_terms = True, prog.nodes, tuple(prog.msm_term_counts)
                 self.captures += 1
                 return prog.take_first()
             out = prog.replay(args, call)

@@ -34,7 +34,8 @@ graph launch. The same bodies run eagerly on the CPU.
 A body's stages (``_stage``) tile it: ``transcript``, ``decompress`` (with
 the scalar parse), ``subgroup`` where it is not fused into decompression,
 ``fr_side`` (child ``fr_pow``, the batch inversion's root), ``multiopen``
-(child ``msm``, each multi-open MSM kernel call) and ``pairing``;
+(child ``msm``, the multi-open MSM kernel call; under GWC19 the right
+side's, after the left side's ``msm_w``) and ``pairing``;
 ``_rlc_body`` adds ``rlc_msm``, ``pairing``, ``post``, ``recheck`` and
 ``final``. While tracing is on (``utils/tracing.py``) each entry call is
 recorded and the stages are timed, in the graph form as in the eager one.
@@ -418,7 +419,9 @@ class TorchVerifier:
             return self.programs.run(key, body, args, call)
         if call is None:
             return body(*self._on_device(*args))
-        return call.run_eager(body, lambda: self._on_device(*args))
+        out = call.run_eager(body, lambda: self._on_device(*args))
+        call.msm_terms = tuple(self.msm_term_counts)
+        return out
 
     def _key(self, entry: str, args, *extra) -> tuple:
         """A program's key: the entry point, B, the subgroup mode and its
@@ -715,15 +718,15 @@ class TorchVerifier:
                 return self.perm_coms[int(key[6:])].expand(B, 3, FP_SPEC.L)
             return points[key]
 
-        def run_msm(terms):
+        def run_msm(terms, stage="msm"):
             """One MSM over the de-duplicated terms (self.msm: one kernel
             call, or one on each slice of the points; msm_term_counts holds
-            the unsharded K)."""
+            the unsharded K), run as the stage `stage`."""
             terms = dedup_terms(terms)
             self.msm_term_counts.append(len(terms))
             pts_arr = torch.stack([resolve_point(k) for k, _c in terms], -3).contiguous()
             coeffs = fr.from_mont(torch.stack([c for _k, c in terms], -2)).contiguous()
-            return self._stage("msm", lambda: self.msm(pts_arr, coeffs))
+            return self._stage(stage, lambda: self.msm(pts_arr, coeffs))
 
         def multiopen():
             if plan.flavor == FLAVOR_HALO2:
@@ -921,7 +924,8 @@ class TorchVerifier:
         _multiopen_gwc: the queries grouped by rotation in first-occurrence
         order; left = sum_i u^i w_i, right = sum_i u^i z_i w_i
         + sum_i u^i sum_j v^j c_ij - (sum_i u^i sum_j v^j e_ij) G1. The two
-        sides run as two MSM kernel calls, each de-duplicated on its own."""
+        sides run as two MSM kernel calls, each de-duplicated on its own: the
+        left (the W_i) as the stage ``msm_w``, the right as ``msm``."""
         v_ch, u_ch, x = ch["v"], ch["u"], ch["x"]
         B = v_ch.shape[0]
         dev = v_ch.device
@@ -941,4 +945,4 @@ class TorchVerifier:
             final_eval = fr.add(final_eval, fr.mul(u_pow, inner))
             u_pow = fr.mul(u_pow, u_ch)
         right_terms.append(("#neg_g1", final_eval))
-        return run_msm(left_terms), run_msm(right_terms)
+        return run_msm(left_terms, "msm_w"), run_msm(right_terms)

@@ -1,10 +1,11 @@
 """The committed artifact sets the port verifies: simple_mul, lookup_table,
 atms, atms_with_lookups and atms_228_408 (halo2-book KZG, the JAX
-package's ``examples/artifacts/``), simple_mul's GWC19 set and the ATMS
-pair at 90 parties and threshold 50 (the port's own,
-``plutus_halo2_tpu_torch/artifacts/``; the last two made by
-``python3 -m plutus_halo2_tpu_torch.examples.atms --parties 90
---threshold 50 [--lookups]``). Each set is a proof, its
+package's ``examples/artifacts/``), simple_mul's GWC19 set, the ATMS
+pair at 90 parties and threshold 50, and the lookup variant of that pair
+in the GWC19 flavor (the port's own, ``plutus_halo2_tpu_torch/artifacts/``;
+the last three made on the card by ``python3 -m
+plutus_halo2_tpu_torch.examples.atms [gwc_kzg] --parties 90 --threshold 50
+[--lookups]``). Each set is a proof, its
 invalid twin, the public inputs and the VK, as the reference's
 proof_serialization.rs writes them (``utils/serialization.py``); the plan
 is rebuilt from the VK and the circuit's structure (``plan_from_vk``), so
@@ -35,6 +36,7 @@ SETS = {  # name -> (directory, circuit factory, flavor)
     "atms_228_408": (EXAMPLES, lambda: AtmsCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
     "atms_50_90": (PORT, lambda: AtmsCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
     "atms_with_lookups_50_90": (PORT, lambda: AtmsLookupCircuit(*_ATMS_ARGS), FLAVOR_HALO2),
+    "atms_with_lookups_50_90_gwc19": (PORT, lambda: AtmsLookupCircuit(*_ATMS_ARGS), FLAVOR_GWC),
 }
 
 # the files of a set, by suffix; proof.json (serialize_proof) where committed

@@ -27,7 +27,7 @@ records (the oldest overwritten, and counted, once the ring is full):
   (``graph_start``), the last its end (``graph_end``). The top-level
   stages tile the body: each starts where the one before it ends, the
   first at the first mark, the last ends at the last; a child stage
-  (``fr_pow``, ``msm``) has its own pair.
+  (``fr_pow``, ``msm``, GWC19's ``msm_w``) has its own pair.
 
 The events are a preallocated ring of event sets, one a ring slot; nothing
 waits for them on the hot path. ``calls()`` synchronises once, maps every
@@ -281,7 +281,9 @@ class Call:
     (the first and last stage marks), on the host clock, s), ``graph_ms``
     (graph_end - graph_start, device ms) and ``stages``. ``captured``: the
     call captured its key's program (and has no device times); ``nodes``:
-    the census of the program it ran (``models/programs.py``)."""
+    the census of the program it ran (``models/programs.py``);
+    ``msm_terms``: the de-duplicated K of each MSM call of its body, as
+    counted when the program was captured (an eager call: as it ran)."""
 
     def __init__(self, cid: int, entry: str, card: int | None, events: _EventSet | None):
         self.id, self.entry, self.card = cid, entry, card  # card: the CUDA device's index; None on the CPU
@@ -289,6 +291,7 @@ class Call:
         self._open: list = []
         self.captured = False
         self.nodes = None
+        self.msm_terms = None
         self.plan = None
         self._events = events  # the slot's event set on the card; None on the CPU
         self._times: dict = {}  # the CPU's clock reads, by mark

@@ -55,6 +55,7 @@ J_CIRCUITS = {
     "atms_228_408": lambda: j_atms.AtmsCircuit([(0, 1)] * 408, [None] * 408, 0, 228),
     "atms_50_90": lambda: j_atms.AtmsCircuit(*_ATMS2),
     "atms_with_lookups_50_90": lambda: j_atms.AtmsLookupCircuit(*_ATMS2),
+    "atms_with_lookups_50_90_gwc19": lambda: j_atms.AtmsLookupCircuit(*_ATMS2),
 }
 
 

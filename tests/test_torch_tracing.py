@@ -5,7 +5,8 @@ gives the traced program a key of its own; a traced call's spans share its
 record and nest under ``ph2.call``; an eager body's stages tile it (each
 top-level stage starts where the one before it ends, from the body's
 start to its end, children inside their parents) for ``verify()`` and
-``verify_rlc_device()`` in both multi-open flavors; self times subtract
+``verify_rlc_device()`` in both multi-open flavors (GWC19's left MSM the
+stage ``msm_w``); a call carries its MSM term counts; self times subtract
 children; the ring counts what it overwrites; and under the profiler each
 span is a host op of its name. The pairing, MSM, subgroup and Fp pow
 kernels' plain versions are replaced by cheap stand-ins of their shapes:
@@ -81,7 +82,7 @@ class _FakeProgram:
     """models/programs.Program's interface, without a card."""
 
     def __init__(self, verifier, body, args, traced=False):
-        self.traced, self.nodes = traced, {"kernel": 3}
+        self.traced, self.nodes, self.msm_term_counts = traced, {"kernel": 3}, [4, 38]
 
     def take_first(self):
         return "first"
@@ -104,7 +105,7 @@ def test_tracing_at_capture_is_part_of_the_key(monkeypatch):
     with rec.call("verify", torch.device("cpu")) as call:
         assert progs.run(key, None, (), call) == "first"
     assert list(progs.cache) == [key, (*key, "traced")] and progs.cache[(*key, "traced")].traced
-    assert call.captured and call.nodes == {"kernel": 3}
+    assert call.captured and call.nodes == {"kernel": 3} and call.msm_terms == (4, 38)
     assert [(s.name, s.parent) for s in call.spans] == [("ph2.call", None)]
     with rec.call("verify", torch.device("cpu")) as again:
         assert progs.run(key, None, (), again) == ("replay", again)
@@ -141,14 +142,34 @@ def test_eager_stages_tile_the_body(stand_ins, recorder, name, entry):
     for a, b in zip(top, top[1:]):
         assert a[3] == b[2]  # a stage's exit is the next one's entry
     children = [(p[0], plan[p[1]][0]) for p in plan if p[1] is not None]
-    msms = 1 if name == "simple_mul" else 2  # GWC19: the two sides' MSMs
-    assert children == [("fr_pow", "fr_side")] + [("msm", "multiopen")] * msms
+    # GWC19: the two sides' MSMs, the left (the W_i) first as msm_w
+    msms = ["msm"] if name == "simple_mul" else ["msm_w", "msm"]
+    assert children == [("fr_pow", "fr_side")] + [(m, "multiopen") for m in msms]
     for p in plan:
         if p[1] is not None:
             assert plan[p[1]][2] < p[2] < p[3] < plan[p[1]][3]
     stages = {s.name: s for s in c.stages}
     assert abs(c.top_ms() - c.graph_ms) <= 0.01 * c.graph_ms
     assert stages["transcript"].start >= c.device["graph_start"] and stages["pairing"].end <= c.device["graph_end"]
+
+
+@pytest.mark.parametrize("name,stages,terms", [
+    ("simple_mul", ["transcript", "decompress", "fr_side", "fr_pow", "multiopen", "msm", "pairing"], (16,)),
+    ("simple_mul_gwc19", ["transcript", "decompress", "fr_side", "fr_pow", "multiopen", "msm_w", "msm", "pairing"],
+     (3, 17)),
+], ids=["halo2", "gwc19"])
+def test_multiopen_stages_and_term_counts(stand_ins, recorder, name, stages, terms):
+    """verify()'s stages in the order they open: the halo2-book flavor's
+    as they were, GWC19's with its left MSM as msm_w; the multi-open's
+    self time leaves out every MSM child; the call carries the body's
+    de-duplicated MSM term counts."""
+    tv, batch, pis = _setup(name)
+    _call(tv, "verify", batch, pis)
+    (c,) = tracing.calls()
+    assert [p[0] for p in c.plan] == stages
+    msms = sum(c.stage_ms(m) for m in ("msm_w", "msm"))
+    assert c.self_ms("multiopen") == pytest.approx(c.stage_ms("multiopen") - msms)
+    assert c.msm_terms == tuple(tv.msm_term_counts) == terms
 
 
 def test_self_time_subtracts_children():
@@ -159,6 +180,8 @@ def test_self_time_subtracts_children():
                 S("msm", 2, 0.014, 0.017, 3.0)]
     assert c.self_ms("fr_side") == 7.0 and c.self_ms("multiopen") == 5.0
     assert c.stage_ms("msm") == 5.0 and c.top_ms() == 20.0 and c.self_ms("msm") == 5.0
+    c.stages[3].name = "msm_w"  # GWC19's left side: a child all the same
+    assert c.self_ms("multiopen") == 5.0 and c.stage_ms("msm_w") == 2.0 and c.stage_ms("msm") == 3.0
 
 
 def test_stages_nest_and_tile():
