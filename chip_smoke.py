@@ -43,7 +43,8 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      limb for limb with the plain version of its decomposition and in affine
      coordinates with the per-point MSM; the pairing on 1024 distinct checks built from the
      slice's pairing sides, half of them true, and on the first 128 of
-     them, the RLC group check's rows; decompression on the proof's
+     them, the RLC group check's rows, and the first 64, each timed;
+     decompression on the proof's
      points and crafted encodings, its subgroup verdicts on the rows whose
      points all decode, also against the per-point aggregate test; the
      subgroup kernel against the plain version of its decomposition and
@@ -941,8 +942,9 @@ def main() -> int:
         ops = sum(_pairing_ops(int(n), BLS_X) for n in live.tolist())
         return _bound_ms(ops, 8 * (el.numel() + er.numel()) + el.shape[0])
 
-    # at B, then at the RLC group check's 128 rows (the first 128 checks)
-    for n in (B, RLC_ROWS):
+    # at B, then at the RLC group check's 128 rows and at 64 rows (the first
+    # checks)
+    for n in (B, RLC_ROWS, 64):
         el_n, er_n = el[:n].contiguous(), er[:n].contiguous()
         got = cuda_pairing.pairing_check(el_n, er_n, verifier.pair)
         want, plain_ms = _plain(lambda: cuda_pairing.pairing_check_plain(el_n, er_n, verifier.pair))

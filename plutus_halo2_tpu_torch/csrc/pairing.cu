@@ -12,36 +12,70 @@
 // squarings; a compare to 1. An identity input contributes the factor 1,
 // and a row of two identities is true at once.
 //
-// Bound: integer multiply throughput. About 17,000 Fp products per row with
-// two non-identity points, each a CIOS product of 300 32x32 word multiplies
-// (chip_smoke.py counts them with the Pallas kernel's algorithm). One thread
-// per row made the time one thread's chain of all of them (~54,000 with a
-// schoolbook tower). Here the time is a row's critical path: ~3,300 stages.
+// Bound: a row's critical path. About 17,000 Fp products per row with two
+// non-identity points, each a CIOS product of 300 32x32 word multiplies
+// (chip_smoke.py counts them with the Pallas kernel's algorithm), spread
+// over the stages of a program: 3,345 dependent stages a row, 560 of them
+// product passes, the rest linear combinations and three inversions. At
+// 128 rows (one row an SM) or 1,024 (eight) the card holds too few rows to
+// hide a row's latency, so the time is one row's chain of stages, not the
+// card's multiply throughput. On an H100 with one warp an SM a pass of
+// f_mul2 takes ~5,900 cycles and f_mul ~2,600. Built term by term (a table
+// read, a switch over eight slot bases, three shared loads, a negation and
+// a modular add, a conditional subtract of p after every add), the operands
+// took most of a row's ~13.6e6 cycles (linear stages 6.5e6, product stages
+// 5.1e6 with their operands, inversions 0.6e6); with the operand path below
+// a row takes ~8.4e6 (linear 2.8e6, product stages 4.2e6, ~3.3e6 of that
+// f_mul2, inversions 0.6e6), so the products now lead.
 //
-// Design: a group of G lanes (32 by default, or 16) per row. Every
-// tower formula is a stack of independent Fp products, so the host traces
-// each step of the schedule (ops/tower.py's k12_* functions, run on a
-// symbolic field) into a program: stages of products, of linear
-// combinations (the Pallas kernel's adds and subtracts, a node used once
-// folded into its user) or of inversions. A stage's items are spread over
-// the group's lanes; a lane builds each operand as an integer combination
-// of slots (PTX carry chains, reduced once per add), runs its two products
-// of the stage interleaved in registers, and writes them to slots. A slot
-// is one Fp (12 words) in the row's slice of shared memory; stages are
-// separated by __syncwarp on the group's mask, with no block barrier after
-// the block's loads. Inversions run the binary extended Euclidean
-// algorithm on one lane each (the two affine ones at once), a few percent
-// of a Fermat ladder's products. A block loads the ladders and the loops'
-// programs (the head of the int32 program table) into shared memory once;
-// the other programs and the constants (one, the Frobenius gammas) are
-// read from global memory. Rows per block fill the SMs once at the batch's
-// size (cuda_pairing.rows_per_block). The 63-step loops stay rolled, so
-// nvcc builds this file in seconds.
+// Design: a group of G lanes (32 by default, or 16) per row. Every tower
+// formula is a stack of independent Fp products, so the host traces each
+// step of the schedule (ops/tower.py's k12_* functions, run on a symbolic
+// field) into a program: stages of products, of linear combinations (the
+// Pallas kernel's adds and subtracts, a node used once folded into its
+// user) or of inversions. A stage's items are spread over the group's lanes;
+// a lane builds each operand as an integer combination of slots, runs its
+// two products of the stage interleaved in registers (f_mul2), and writes
+// them to slots. A slot is one Fp (12 words) in the row's slice of shared
+// memory; stages are separated by __syncwarp on the group's mask, with no
+// block barrier after the block's loads. Inversions run the binary
+// extended Euclidean algorithm on one lane each (the two affine ones at
+// once), a few percent of a Fermat ladder's products. A block copies the
+// ladders, the int32 program table and each row's constants into shared
+// memory once, all in flight together (cp.async). Rows per block fill the
+// SMs once at the batch's size (cuda_pairing.rows_per_block). The 63-step
+// loops stay rolled, so nvcc builds this file in seconds.
+//
+// The operand path. Every term of the table is resolved on the host to one
+// word offset in the row's slice and a small signed coefficient: a row
+// holds its own copy of the constants (one, the Frobenius gammas) and of
+// the Miller step's lines (copied in from the block's ladder at each step),
+// and a chain's cur is copied into fixed slots before its steps, so a term
+// costs one add to the row's base. A stage's header carries its largest
+// combination K (rounded up to PAIR_PAD), and every combination of the
+// stage has K terms (zero-coefficient terms pad it). A lane evaluates the
+// combinations of its items together, PAIR_PAD terms at a time: their
+// descriptors, then all their slot loads, then the sums, each term added
+// as |c| (x XOR sign) into 64-bit word accumulators with no carry between
+// words (a negative term adds |c| (2^384 - 1 - x) and is corrected once).
+// One reduction closes a combination: with COMBO_M p added, the sum W lies
+// in [p, 17 p); a quotient q from the top word is floor(W / p) or one less,
+// so W - q p and W - (q + 1) p, two carry chains that run side by side,
+// leave the fully reduced value word for word (the one whose top bit is
+// clear). A deeper load-ahead (4 terms) was no faster at 64, 128 or 1,024
+// rows, and holding a product stage's four combinations at once ran out of
+// registers; a product pass builds its two items' operands one item after
+// the other.
 #include "field.cuh"
 
 constexpr int SLOT_WORDS = 12;
 constexpr int MILLER_STEPS = 63;
 constexpr int LADDER_WORDS = 2 * PAIR_LINE_PAIR_STRIDE * SLOT_WORDS;
+
+// the block's shared memory: the ladders, the program table (rounded up to 4
+// words), then each row's slots; every table read and slot access below
+// indexes it, so all of them are shared-memory instructions
+extern __shared__ __align__(16) uint32_t smem[];
 
 DEV void load_slot(uint32_t* r, const uint32_t* p) {
   const uint4* q = reinterpret_cast<const uint4*>(p);
@@ -61,123 +95,149 @@ DEV void store_slot(uint32_t* p, const uint32_t* r) {
   for (int k = 0; k < 3; k++) q[k] = make_uint4(r[4 * k], r[4 * k + 1], r[4 * k + 2], r[4 * k + 3]);
 }
 
-// One program run: the bases a slot reference names, and the row's group.
+// n 16-byte words from global src to shared dst, spread over `threads`
+// threads from `t`, all in flight at once (cp.async); the caller waits
+// (async_wait) and then synchronizes
+DEV void async_copy(uint32_t* dst, const void* src, int n, int t, int threads) {
+#pragma unroll 1
+  for (int k = t; k < n; k += threads) {
+#ifdef PH2_CPU_SIM
+    reinterpret_cast<uint4*>(dst)[k] = reinterpret_cast<const uint4*>(src)[k];
+#else
+    const unsigned s = (unsigned)__cvta_generic_to_shared(reinterpret_cast<uint4*>(dst) + k);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(reinterpret_cast<const uint4*>(src) + k)
+                 : "memory");
+#endif
+  }
+}
+
+DEV void async_wait() {
+#ifndef PH2_CPU_SIM
+  asm volatile("cp.async.wait_all;" ::: "memory");
+#endif
+}
+
+// n slots from src to dst, spread over the group's lanes (16-byte copies)
+DEV void copy_slots(uint32_t* dst, const uint32_t* src, int n, int lane, int G) {
+#pragma unroll 1
+  for (int k = lane; k < 3 * n; k += G) reinterpret_cast<uint4*>(dst)[k] = reinterpret_cast<const uint4*>(src)[k];
+}
+
+// One program run: where the table and the row's slots start in smem, and
+// the row's group.
 struct Run {
-  const int* tab_hot;  // the head of the program table (shared): the HOT programs
-  const int* tab_all;  // the whole table (global)
-  int hot_words;
-  const uint32_t* consts;
-  const uint32_t* line;      // this Miller step's doubling lines (shared)
-  const uint32_t* line_add;  // this one-bit's addition lines (shared)
-  uint32_t* row;         // the row's slots (shared)
-  uint32_t* a0;
-  uint32_t* a1;
-  uint32_t* a2;
+  int tab_off, row_off;
   int lane, G;
   unsigned mask;
   long long* prof;  // optional: cycles in product, linear and inversion stages, and the stage count
 };
 
-// The slot-reference bases of one program run, in registers.
-struct Bases {
-  const uint32_t *a0, *a1, *a2, *stage, *scratch, *consts, *line, *line_add;
-};
-
-DEV const uint32_t* slot_ptr(const Bases& b, int ref) {
-  const int off = (ref & 0xfff) * SLOT_WORDS;
-  switch ((ref >> 12) & 0xf) {
-    case PAIR_ARG0: return b.a0 + off;
-    case PAIR_ARG1: return b.a1 + off;
-    case PAIR_ARG2: return b.a2 + off;
-    case PAIR_STAGE: return b.stage + off;
-    case PAIR_SCRATCH: return b.scratch + off;
-    case PAIR_CONST: return b.consts + off;
-    case PAIR_LINE: return b.line + off;
-    default: return b.line_add + off;
-  }
-}
-
-// Carry-chain word arithmetic (the PTX carry flag, one instruction a word).
-DEV uint32_t add_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-DEV uint32_t addc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-DEV uint32_t sub_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-DEV uint32_t subc_cc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-DEV uint32_t subc(uint32_t a, uint32_t b) {
-  uint32_t r;
-  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
-  return r;
-}
-
-// r = a + b mod p for a, b <= p (a + b < 2^384): the sum, then p subtracted
-// unless that borrows
-DEV void cc_add(uint32_t* r, const uint32_t* a, const uint32_t* b) {
-  uint32_t t[12], d[12];
-  t[0] = add_cc(a[0], b[0]);
+// Terms k.. k + PAIR_PAD - 1 of NC combinations (desc[c]: combination c's
+// terms) into their accumulators: the descriptors, then every slot load,
+// then the sums
+template <int NC>
+DEV void gather(uint64_t (&acc)[NC][SLOT_WORDS], uint32_t (&cn)[NC], const uint32_t* row,
+                const int* const (&desc)[NC], int k) {
+  constexpr int D = PAIR_PAD;
+  int t[NC][D];
+  uint32_t v[NC][D][SLOT_WORDS];
 #pragma unroll
-  for (int i = 1; i < 12; i++) t[i] = addc_cc(a[i], b[i]);
-  d[0] = sub_cc(t[0], FpT::mod(0));
+  for (int c = 0; c < NC; c++)
 #pragma unroll
-  for (int i = 1; i < 12; i++) d[i] = subc_cc(t[i], FpT::mod(i));
-  const uint32_t borrow = subc(0u, 0u);  // all ones when t < p
+    for (int d = 0; d < D; d++) t[c][d] = desc[c][k + d];
 #pragma unroll
-  for (int i = 0; i < 12; i++) r[i] = borrow ? t[i] : d[i];
-}
-
-// r = p - a for a <= p (p for a = 0, which cc_add accepts)
-DEV void cc_neg(uint32_t* r, const uint32_t* a) {
-  r[0] = sub_cc(FpT::mod(0), a[0]);
+  for (int c = 0; c < NC; c++)
 #pragma unroll
-  for (int i = 1; i < 12; i++) r[i] = subc_cc(FpT::mod(i), a[i]);
-}
-
-// acc = the integer combination of slots at tab[at] ([n, terms...]), mod p;
-// returns the index past it. A negative coefficient adds |c| (p - x); p - 0
-// = p is left only by a lone negated term, which a last add of 0 reduces.
-DEV int combo(uint32_t* acc, const Bases& b, const int* tab, int at) {
-  const int n = tab[at];
-  bool reduced = true;
-  f_zero<FpT>(acc);
-#pragma unroll 1
-  for (int k = 0; k < n; k++) {
-    const int t = tab[at + 1 + k];
-    const int coef = (int)(int8_t)((t >> 16) & 0xff);
-    uint32_t v[SLOT_WORDS];
-    load_slot(v, slot_ptr(b, t));
-    if (coef < 0) cc_neg(v, v);
-    int c = coef < 0 ? -coef : coef;
-    if (k == 0) {
-      f_copy<FpT>(acc, v);
-      c -= 1;
-      reduced = coef > 0;
+    for (int d = 0; d < D; d++) load_slot(v[c][d], row + (t[c][d] >> 8));
+#pragma unroll
+  for (int c = 0; c < NC; c++)
+#pragma unroll
+    for (int d = 0; d < D; d++) {
+      const int coef = (int)(int8_t)(t[c][d] & 0xff);
+      const uint32_t neg = coef < 0 ? 0xffffffffu : 0u;
+      const uint32_t m = (uint32_t)(coef < 0 ? -coef : coef);
+      cn[c] += neg & m;
+#pragma unroll
+      for (int i = 0; i < SLOT_WORDS; i++) acc[c][i] += (uint64_t)m * (v[c][d][i] ^ neg);
     }
+}
+
+// r = sum_i (l_i + h_i 2^32) 2^(32 i) mod 2^384: r_0 = l_0, then one carry
+// chain (the PTX carry flag, one instruction a word)
+DEV void fold_words(uint32_t* r, const uint32_t* l, const uint32_t* h) {
+  r[0] = l[0];
+#ifdef PH2_CPU_SIM
+  uint64_t c = 0;
+  for (int i = 1; i < 12; i++) {
+    c += (uint64_t)l[i] + h[i - 1];
+    r[i] = (uint32_t)c;
+    c >>= 32;
+  }
+#else
+#pragma unroll
+  for (int i = 1; i < 12; i++) r[i] = l[i];
+  asm("add.cc.u32 %0, %0, %11;\n\t"
+      "addc.cc.u32 %1, %1, %12;\n\t"
+      "addc.cc.u32 %2, %2, %13;\n\t"
+      "addc.cc.u32 %3, %3, %14;\n\t"
+      "addc.cc.u32 %4, %4, %15;\n\t"
+      "addc.cc.u32 %5, %5, %16;\n\t"
+      "addc.cc.u32 %6, %6, %17;\n\t"
+      "addc.cc.u32 %7, %7, %18;\n\t"
+      "addc.cc.u32 %8, %8, %19;\n\t"
+      "addc.cc.u32 %9, %9, %20;\n\t"
+      "addc.u32 %10, %10, %21;"
+      : "+r"(r[1]), "+r"(r[2]), "+r"(r[3]), "+r"(r[4]), "+r"(r[5]), "+r"(r[6]),
+        "+r"(r[7]), "+r"(r[8]), "+r"(r[9]), "+r"(r[10]), "+r"(r[11])
+      : "r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3]), "r"(h[4]), "r"(h[5]), "r"(h[6]), "r"(h[7]), "r"(h[8]),
+        "r"(h[9]), "r"(h[10]));
+#endif
+}
+
+// r = W mod p, fully reduced, for the accumulated combination: W = acc +
+// cn - cn 2^384 (the negative terms' correction; acc holds COMBO_M p) lies
+// in [p, 17 p). q = floor((acc_11 - cn 2^32) / 2^8 / ((p >> 360) + 1)) is
+// floor(W / p) or one less, so W - q p lies in [0, 2 p); both W - q p and
+// W - (q + 1) p are taken mod 2^384 as acc + cn + q' (2^384 - p), and the
+// second, unless it wrapped (top bit set), is the value.
+DEV void reduce_combo(uint32_t* r, const uint64_t* acc, uint32_t cn) {
+  const uint64_t top = acc[11] - ((uint64_t)cn << 32);
+  const uint32_t q = (uint32_t)(top >> 8) / PAIR_QDIV;
+  uint32_t l0[SLOT_WORDS], h0[SLOT_WORDS], l1[SLOT_WORDS], h1[SLOT_WORDS];
+#pragma unroll
+  for (int i = 0; i < SLOT_WORDS; i++) {
+    const uint64_t base = acc[i] + (i == 0 ? cn : 0u);
+    const uint64_t a = base + (uint64_t)q * PAIR_NEGP[i];
+    const uint64_t b = base + (uint64_t)(q + 1) * PAIR_NEGP[i];
+    l0[i] = (uint32_t)a;
+    h0[i] = (uint32_t)(a >> 32);
+    l1[i] = (uint32_t)b;
+    h1[i] = (uint32_t)(b >> 32);
+  }
+  uint32_t r0[SLOT_WORDS], r1[SLOT_WORDS];
+  fold_words(r0, l0, h0);
+  fold_words(r1, l1, h1);
+  const bool wrapped = (r1[11] >> 31) != 0;
+#pragma unroll
+  for (int i = 0; i < SLOT_WORDS; i++) r[i] = wrapped ? r0[i] : r1[i];
+}
+
+// NC combinations of K terms each (desc[c]: combination c's terms; K a
+// multiple of PAIR_PAD), fully reduced into out[c]: PAIR_PAD terms at a time
+template <int NC>
+DEV void combos(uint32_t (*out)[SLOT_WORDS], const uint32_t* row, const int* const (&desc)[NC], int K) {
+  uint64_t acc[NC][SLOT_WORDS];
+  uint32_t cn[NC];
+#pragma unroll
+  for (int c = 0; c < NC; c++) {
+    cn[c] = 0;
+#pragma unroll
+    for (int i = 0; i < SLOT_WORDS; i++) acc[c][i] = PAIR_COMBO_MP[i];
+  }
 #pragma unroll 1
-    for (; c > 0; c--) {
-      cc_add(acc, acc, v);
-      reduced = true;
-    }
-  }
-  if (!reduced) {
-    uint32_t z[SLOT_WORDS];
-    f_zero<FpT>(z);
-    cc_add(acc, acc, z);
-  }
-  return at + 1 + n;
+  for (int k = 0; k < K; k += PAIR_PAD) gather<NC>(acc, cn, row, desc, k);
+#pragma unroll
+  for (int c = 0; c < NC; c++) reduce_combo(out[c], acc[c], cn[c]);
 }
 
 DEV void shr1(uint32_t* x) {
@@ -267,77 +327,175 @@ DEV_NOINLINE void gcd_inv(uint32_t* r, const uint32_t* x) {
 // Run program `pid` (ops/pairing_program.py): its stages' items spread over
 // the group's lanes, then the staged outputs copied to dst. A stage holds
 // items of one kind. In a product stage every lane runs two products at
-// once, items i and i + G (zeros where it has none), so that the group
-// stays converged.
-DEV_NOINLINE void run_program(const Run& r, int pid, uint32_t* dst) {
-  const Bases b{r.a0, r.a1, r.a2, r.row + PAIR_ROW_STAGE * SLOT_WORDS, r.row + PAIR_ROW_SCRATCH * SLOT_WORDS,
-                r.consts, r.line, r.line_add};
-  const int head = r.tab_hot[pid];
-  const int* tab = head < r.hot_words ? r.tab_hot : r.tab_all;
+// once, items i and i + G (zeros where the stage fits one pass of single
+// items); a linear stage gives a lane one item, or two at once where its
+// items outnumber the lanes. A lane past the stage's items repeats an item
+// and stores nothing, so that the group stays converged.
+DEV_NOINLINE void run_program(const Run r, int pid, uint32_t* dst) {
+  const int* tab = reinterpret_cast<const int*>(smem + r.tab_off);
+  uint32_t* row = smem + r.row_off;
+  const int head = tab[pid];
   const int n_stages = tab[head], n_out = tab[head + 1];
+  const int lane = r.lane, G = r.G;
+  int at = head + 2;
+  int hdr = tab[at];
+  long long cyc_prod = 0, cyc_lin = 0, cyc_inv = 0;
 #pragma unroll 1
   for (int s = 0; s < n_stages; s++) {
-    const int st = tab[head + 2 + s];
-    const int n = tab[st];
-    const int kind = tab[st + 1];
+    const int n = hdr & 0xff, kind = (hdr >> 8) & 3, K = hdr >> 10;
+    const int* items = tab + at + 1;
+    const int stride = 1 + (kind == PAIR_PROD ? 2 : 1) * K;
+    const int next = at + 1 + n * stride;
     const long long t0 = r.prof ? clock64() : 0;
     if (kind == PAIR_PROD) {
 #pragma unroll 1
-      for (int i = r.lane; i - r.lane < n; i += 2 * r.G) {
-        const int j = i + r.G;
-        uint32_t a0[SLOT_WORDS], b0[SLOT_WORDS], a1[SLOT_WORDS], b1[SLOT_WORDS];
-        int d0 = -1, d1 = -1;
-        if (i < n) {
-          const int at = tab[st + 2 + i];
-          d0 = tab[at + 1];
-          combo(b0, b, tab, combo(a0, b, tab, at + 2));
+      for (int i = lane; i - lane < n; i += 2 * G) {
+        const int j = i + G;
+        const int* ia = items + min(i, n - 1) * stride;
+        const int* ib = items + (j < n ? j : min(i, n - 1)) * stride;
+        uint32_t o[4][SLOT_WORDS];
+        const int* const da[2] = {ia + 1, ia + 1 + K};
+        combos<2>(o, row, da, K);
+        if (n > G) {
+          const int* const db[2] = {ib + 1, ib + 1 + K};
+          combos<2>(o + 2, row, db, K);
         } else {
-          f_zero<FpT>(a0);
-          f_zero<FpT>(b0);
+          f_zero<FpT>(o[2]);
+          f_zero<FpT>(o[3]);
         }
-        if (j < n) {
-          const int at = tab[st + 2 + j];
-          d1 = tab[at + 1];
-          combo(b1, b, tab, combo(a1, b, tab, at + 2));
-        } else {
-          f_zero<FpT>(a1);
-          f_zero<FpT>(b1);
-        }
-        f_mul2<FpT>(a0, a0, b0, a1, a1, b1);
-        if (d0 >= 0) store_slot(const_cast<uint32_t*>(slot_ptr(b, d0)), a0);
-        if (d1 >= 0) store_slot(const_cast<uint32_t*>(slot_ptr(b, d1)), a1);
+        f_mul2<FpT>(o[0], o[0], o[1], o[2], o[2], o[3]);
+        if (i < n) store_slot(row + ia[0], o[0]);
+        if (j < n) store_slot(row + ib[0], o[2]);
       }
-    } else {
+    } else if (n > G) {
 #pragma unroll 1
-      for (int i = r.lane; i < n; i += r.G) {
-        const int at = tab[st + 2 + i];
-        uint32_t a[SLOT_WORDS], out[SLOT_WORDS];
-        combo(a, b, tab, at + 2);
-        if (kind == PAIR_INV)
-          gcd_inv(out, a);
-        else
-          f_copy<FpT>(out, a);
-        store_slot(const_cast<uint32_t*>(slot_ptr(b, tab[at + 1])), out);
+      for (int i = lane; i - lane < n; i += 2 * G) {
+        const int j = i + G;
+        const int* ia = items + min(i, n - 1) * stride;
+        const int* ib = items + (j < n ? j : min(i, n - 1)) * stride;
+        uint32_t o[2][SLOT_WORDS];
+        const int* const desc[2] = {ia + 1, ib + 1};
+        combos<2>(o, row, desc, K);
+        if (i < n) store_slot(row + ia[0], o[0]);
+        if (j < n) store_slot(row + ib[0], o[1]);
+      }
+    } else if (lane < n) {
+      const int* ia = items + lane * stride;
+      uint32_t o[1][SLOT_WORDS];
+      const int* const desc[1] = {ia + 1};
+      combos<1>(o, row, desc, K);
+      if (kind == PAIR_INV) {
+        uint32_t x[SLOT_WORDS], v[SLOT_WORDS];  // only these pass through memory to gcd_inv
+        f_copy<FpT>(x, o[0]);
+        gcd_inv(v, x);
+        store_slot(row + ia[0], v);
+      } else {
+        store_slot(row + ia[0], o[0]);
       }
     }
+    if (s + 1 < n_stages) hdr = tab[next];  // the next stage's header, before the barrier
     __syncwarp(r.mask);
     if (r.prof) {
-      r.prof[kind == PAIR_PROD ? 0 : kind == PAIR_LIN ? 1 : 2] += clock64() - t0;
-      r.prof[3] += 1;
+      const long long t = clock64() - t0;
+      if (kind == PAIR_PROD)
+        cyc_prod += t;
+      else if (kind == PAIR_LIN)
+        cyc_lin += t;
+      else
+        cyc_inv += t;
     }
+    at = next;
+  }
+  if (r.prof) {
+    r.prof[0] += cyc_prod;
+    r.prof[1] += cyc_lin;
+    r.prof[2] += cyc_inv;
+    r.prof[3] += n_stages;
   }
   if (dst != nullptr) {
-    const uint32_t* src = r.row + PAIR_ROW_STAGE * SLOT_WORDS;
-#pragma unroll 1
-    for (int w = r.lane; w < n_out * SLOT_WORDS; w += r.G) dst[w] = src[w];
+    copy_slots(dst, row + PAIR_ROW_STAGE * SLOT_WORDS, n_out, lane, G);
     __syncwarp(r.mask);
+  }
+}
+
+// One row from its affine conversion on (the raw coordinates and the
+// constants are in its slots): the Miller loop, the final exponentiation,
+// the compare to 1 into *out
+DEV void pairing_row(Run& r, const uint32_t* ladder, int live, int* out, long long* ph) {
+  uint32_t* row = smem + r.row_off;
+  const int lane = r.lane, G = r.G;
+  auto slot = [&](int k) { return row + k * SLOT_WORDS; };
+  long long prof[4] = {0, 0, 0, 0};
+  r.prof = ph ? prof : nullptr;
+  if (ph) ph[0] = clock64();
+  run_program(r, PAIR_PROG_AFFINE, slot(PAIR_ROW_PTS));
+  if (ph) ph[1] = clock64();
+
+#pragma unroll 1
+  for (int k = lane; k < 12; k += G) {  // f = 1
+    uint32_t v[SLOT_WORDS];
+    if (k == 0)
+      f_one<FpT>(v);
+    else
+      f_zero<FpT>(v);
+    store_slot(slot(PAIR_ROW_F + k), v);
+  }
+  int n_add = 0;
+#pragma unroll 1
+  for (int i = 0; i < MILLER_STEPS; i++) {
+    const int bit = (int)((BLS_X_ABS >> (62 - i)) & 1);
+    // this step's lines into the row: per pair its doubling line's 4 slots
+    // (12 16-byte words), on a one-bit its addition line's too
+#pragma unroll 1
+    for (int k = lane; k < (bit ? 48 : 24); k += G) {
+      const int set = k / 24, j = (k % 24) / 12, w = k % 12;
+      const int line = set ? MILLER_STEPS + n_add : i;
+      reinterpret_cast<uint4*>(slot((set ? PAIR_ROW_LINE_ADD : PAIR_ROW_LINE) + 4 * j))[w] =
+          reinterpret_cast<const uint4*>(ladder + (j * PAIR_LINE_PAIR_STRIDE + 4 * line) * SLOT_WORDS)[w];
+    }
+    __syncwarp(r.mask);
+    run_program(r, PAIR_PROG_MILLER + 3 * bit + live - 1, slot(PAIR_ROW_F));
+    n_add += bit;
+  }
+
+  if (ph) ph[2] = clock64();
+  // final exponentiation: the easy part into m, then five exp-by-x chains,
+  // each on its cur copied into ROW_CUR and ROW_ACC
+  run_program(r, PAIR_PROG_EASY, slot(PAIR_ROW_M));
+  if (ph) ph[3] = clock64();
+  uint32_t* cur = slot(PAIR_ROW_M);
+#pragma unroll 1
+  for (int step = 0; step < 5; step++) {
+    if (cur != slot(PAIR_ROW_CUR)) copy_slots(slot(PAIR_ROW_CUR), cur, 12, lane, G);
+    copy_slots(slot(PAIR_ROW_ACC), cur, 12, lane, G);
+    __syncwarp(r.mask);
+#pragma unroll 1
+    for (int i = 0; i < MILLER_STEPS; i++)
+      run_program(r, PAIR_PROG_CYC + (int)((BLS_X_ABS >> (62 - i)) & 1), slot(PAIR_ROW_ACC));
+    cur = slot(step == 2 ? PAIR_ROW_CS : PAIR_ROW_CUR);  // m stays for the tail, c after step 2
+    run_program(r, PAIR_PROG_COMBINE + (step < 2 ? 0 : step == 2 ? 1 : 2), cur);
+  }
+  if (ph) ph[4] = clock64();
+  run_program(r, PAIR_PROG_CUBE, slot(PAIR_ROW_F));  // m^3 where f was
+  run_program(r, PAIR_PROG_TAIL, slot(PAIR_ROW_ACC));
+  if (lane == 0) {
+    uint32_t one[SLOT_WORDS];
+    f_one<FpT>(one);
+    bool ok = f_eq<FpT>(slot(PAIR_ROW_ACC), one);
+#pragma unroll 1
+    for (int k = 1; k < 12; k++) ok = ok && f_is_zero<FpT>(slot(PAIR_ROW_ACC + k));
+    *out = ok ? 1 : 0;
+    if (ph) {
+      ph[5] = clock64();
+      for (int k = 0; k < 4; k++) ph[6 + k] = prof[k];
+    }
   }
 }
 
 template <int G>
 __global__ void pairing_kernel(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
                                const uint32_t* consts, int* out, long long* phases, const int* enable, int B,
-                               int row_slots, int hot_words) {
+                               int row_slots, int tab_words) {
   // enable (optional, one word on the device): 0 gates the whole call off,
   // as lax.cond around the JAX package's pairing program; every block then
   // writes true for its rows and leaves before any barrier
@@ -349,31 +507,27 @@ __global__ void pairing_kernel(const int64_t* el, const int64_t* er, const uint3
     }
     return;
   }
-  // shared memory: the ladders, the head of the program table (rounded up
-  // to 4 words), then each row's slots
-  extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* ladder = smem;
-  int* tab_hot = reinterpret_cast<int*>(smem + LADDER_WORDS);
-  const int hot_pad = (hot_words + 3) & ~3;
-  for (int k = threadIdx.x; k < LADDER_WORDS / 4; k += blockDim.x)
-    reinterpret_cast<uint4*>(ladder)[k] = __ldg(reinterpret_cast<const uint4*>(lines) + k);
-  for (int k = threadIdx.x; k < hot_words; k += blockDim.x) tab_hot[k] = __ldg(tab + k);
-  __syncthreads();
+  const int tab_pad = (tab_words + 3) & ~3;  // the table is padded to 4 words on the host
   const int group = threadIdx.x / G, lane = threadIdx.x % G;
   const int b = blockIdx.x * (blockDim.x / G) + group;
+  const int row_off = LADDER_WORDS + tab_pad + group * row_slots * SLOT_WORDS;
+  // the ladders, the table and each row's constants, copied in together
+  async_copy(ladder, lines, LADDER_WORDS / 4, threadIdx.x, blockDim.x);
+  async_copy(smem + LADDER_WORDS, tab, tab_pad / 4, threadIdx.x, blockDim.x);
+  async_copy(smem + row_off + PAIR_ROW_CONST * SLOT_WORDS, consts, 3 * PAIR_N_CONST, lane, G);
+  async_wait();
+  __syncthreads();
   if (b >= B) return;  // the whole group leaves; no block barrier follows
 
   Run r;
-  r.tab_hot = tab_hot;
-  r.tab_all = tab;
-  r.hot_words = hot_words;
-  r.consts = consts;
-  r.line = r.line_add = ladder;
-  r.row = smem + LADDER_WORDS + hot_pad + (size_t)group * row_slots * SLOT_WORDS;
+  r.tab_off = LADDER_WORDS;
+  r.row_off = row_off;
   r.lane = lane;
   r.G = G;
   r.mask = G == 32 ? 0xffffffffu : (((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1)));
-  uint32_t* row = r.row;
+  r.prof = nullptr;
+  uint32_t* row = smem + r.row_off;
   auto slot = [&](int k) { return row + k * SLOT_WORDS; };
 
   // the six coordinates X0 X1 Y0 Y1 Z0 Z1, into the kernel's domain
@@ -395,95 +549,32 @@ __global__ void pairing_kernel(const int64_t* el, const int64_t* er, const uint3
   // then the cycles spent in product, linear and inversion stages, and the
   // number of stages run
   long long* ph = (phases != nullptr && lane == 0) ? phases + (size_t)b * 10 : nullptr;
-  long long prof[4] = {0, 0, 0, 0};
-  r.prof = ph ? prof : nullptr;
-  if (ph) ph[0] = clock64();
-  r.a0 = slot(PAIR_ROW_RAW);
-  run_program(r, PAIR_PROG_AFFINE, slot(PAIR_ROW_PTS));
-  if (ph) ph[1] = clock64();
-
-#pragma unroll 1
-  for (int k = lane; k < 12; k += G) {  // f = 1
-    uint32_t v[SLOT_WORDS];
-    if (k == 0)
-      f_one<FpT>(v);
-    else
-      f_zero<FpT>(v);
-    store_slot(slot(PAIR_ROW_F + k), v);
-  }
-  __syncwarp(r.mask);
-  r.a0 = slot(PAIR_ROW_F);
-  r.a1 = slot(PAIR_ROW_PTS);
-  int n_add = 0;
-#pragma unroll 1
-  for (int i = 0; i < MILLER_STEPS; i++) {
-    const int bit = (int)((BLS_X_ABS >> (62 - i)) & 1);
-    r.line = ladder + i * 4 * SLOT_WORDS;
-    r.line_add = ladder + (MILLER_STEPS + n_add) * 4 * SLOT_WORDS;
-    run_program(r, PAIR_PROG_MILLER + 3 * bit + live - 1, slot(PAIR_ROW_F));
-    n_add += bit;
-  }
-
-  if (ph) ph[2] = clock64();
-  // final exponentiation: the easy part into m, then five exp-by-x chains
-  run_program(r, PAIR_PROG_EASY, slot(PAIR_ROW_M));
-  if (ph) ph[3] = clock64();
-  uint32_t* cur = slot(PAIR_ROW_M);
-#pragma unroll 1
-  for (int step = 0; step < 5; step++) {
-    r.a0 = cur;
-    r.a1 = cur;
-#pragma unroll 1
-    for (int i = 0; i < MILLER_STEPS; i++) {
-      run_program(r, PAIR_PROG_CYC + (int)((BLS_X_ABS >> (62 - i)) & 1), slot(PAIR_ROW_ACC));
-      r.a0 = slot(PAIR_ROW_ACC);
-    }
-    uint32_t* dst = slot(step == 2 ? PAIR_ROW_CS : PAIR_ROW_CUR);  // m stays for the tail, c after step 2
-    run_program(r, PAIR_PROG_COMBINE + (step < 2 ? 0 : step == 2 ? 1 : 2), dst);
-    cur = dst;
-  }
-  if (ph) ph[4] = clock64();
-  r.a0 = slot(PAIR_ROW_M);
-  run_program(r, PAIR_PROG_CUBE, slot(PAIR_ROW_F));  // m^3 where f was
-  r.a0 = cur;
-  r.a1 = slot(PAIR_ROW_CS);
-  r.a2 = slot(PAIR_ROW_F);
-  run_program(r, PAIR_PROG_TAIL, slot(PAIR_ROW_ACC));
-  if (lane == 0) {
-    uint32_t one[SLOT_WORDS];
-    f_one<FpT>(one);
-    bool ok = f_eq<FpT>(slot(PAIR_ROW_ACC), one);
-#pragma unroll 1
-    for (int k = 1; k < 12; k++) ok = ok && f_is_zero<FpT>(slot(PAIR_ROW_ACC + k));
-    out[b] = ok ? 1 : 0;
-    if (ph) {
-      ph[5] = clock64();
-      for (int k = 0; k < 4; k++) ph[6 + k] = prof[k];
-    }
-  }
+  pairing_row(r, ladder, live, out + b, ph);
 }
 
 template <int G>
 static int launch(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
                   const uint32_t* consts, int* out, long long* phases, const int* enable, int B, int rows,
-                  int row_slots, int hot_words, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(uint32_t) * (LADDER_WORDS + ((hot_words + 3) & ~3) + (size_t)rows * row_slots * SLOT_WORDS);
-  cudaError_t e = cudaFuncSetAttribute(pairing_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                  int row_slots, int tab_words, cudaStream_t stream) {
+  const size_t bytes =
+      sizeof(uint32_t) * (LADDER_WORDS + ((tab_words + 3) & ~3) + (size_t)rows * row_slots * SLOT_WORDS);
+  cudaError_t e = cudaFuncSetAttribute(pairing_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  pairing_kernel<G><<<(B + rows - 1) / rows, rows * G, smem, stream>>>(el, er, lines, tab, consts, out, phases, enable,
-                                                                          B, row_slots, hot_words);
+  pairing_kernel<G><<<(B + rows - 1) / rows, rows * G, bytes, stream>>>(el, er, lines, tab, consts, out, phases, enable,
+                                                                          B, row_slots, tab_words);
   return (int)cudaGetLastError();
 }
 
 extern "C" int ph2_pairing_check(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
                                  const uint32_t* consts, int* out, long long* phases, const int* enable, int B,
-                                 int lanes, int rows, int row_slots, int hot_words, void* stream) {
+                                 int lanes, int rows, int row_slots, int tab_words, void* stream) {
   if (B <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   switch (lanes) {
-    case 16: return launch<16>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, hot_words, s);
-    case 32: return launch<32>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, hot_words, s);
+    case 16:
+      return launch<16>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, tab_words, s);
+    case 32:
+      return launch<32>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, tab_words, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -33,11 +33,11 @@ def _tables_on(device):
     built once per process."""
     key = str(device)
     if key not in _TABLES:
-        tab, scratch, hot_words = pairing_program.kernel_tables()
+        tab, scratch, tab_words = pairing_program.kernel_tables()
         consts = np.array([w for v in pairing_program.const_ints() for w in _build.words(v, 12)],
                           dtype=np.uint32).view(np.int32)
         _TABLES[key] = (torch.from_numpy(tab).to(device), torch.from_numpy(consts).to(device),
-                        pairing_program.row_slots(scratch), hot_words)
+                        pairing_program.row_slots(scratch), tab_words)
     return _TABLES[key]
 
 
@@ -98,7 +98,7 @@ def pairing_check(el, er, pp: PreparedPair, phases=None, enable=None):
     lines = pp.lines_on(el.device)
     if lines.shape[1] != 63 + pairing_program.N_ADD:
         raise ValueError("pairing kernel expects 63-step ladders")
-    tab, consts, row_slots, hot_words = _tables_on(el.device)
+    tab, consts, row_slots, tab_words = _tables_on(el.device)
     rows = ROWS_PER_BLOCK or rows_per_block(B, el.device)
     out = torch.empty((B,), dtype=torch.int32, device=el.device)
     if phases is not None:
@@ -110,7 +110,7 @@ def pairing_check(el, er, pp: PreparedPair, phases=None, enable=None):
     _build.check(lib.ph2_pairing_check(_build.ptr(el), _build.ptr(er), _build.ptr(lines), _build.ptr(tab),
                                        _build.ptr(consts), _build.ptr(out),
                                        _build.ptr_or_none(phases), _build.ptr_or_none(enable), B, LANES, rows,
-                                       row_slots, hot_words, _build.stream_ptr()),
+                                       row_slots, tab_words, _build.stream_ptr()),
                  "ph2_pairing_check")
     pairing_check.launches += 1
     return out != 0

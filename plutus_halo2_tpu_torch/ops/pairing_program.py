@@ -16,10 +16,15 @@ batch: the plain version of the kernel's arithmetic, step for step.
 ``kernel_tables`` traces each step once with a symbolic field, whose values
 are integer combinations of slots, into a *program*: stages of independent
 Fp products (and Fermat inversions), each operand an integer combination of
-known slots, then one stage of output combinations. ``csrc/pairing.cu``
-interprets these programs with a group of lanes per row, the stage's items
-spread over the lanes; ``interpret_row`` is the same interpreter on Python
-integers, so the tables the kernel reads are checked on the CPU."""
+known slots, then one stage of output combinations. Every reference is
+resolved when the table is written to one word offset in the kernel's row of
+slots (``slot_of``), and a stage's combinations are padded to one length, so
+the kernel's operand path reads no bases and takes no branch per term.
+``csrc/pairing.cu`` interprets these programs with a group of lanes per
+row, the stage's items spread over the lanes; ``interpret_row`` is the same
+interpreter on Python integers, so the tables the kernel reads are checked
+on the CPU. ``program_stats`` counts a row's critical path: the stages,
+product passes, terms and reductions of its slowest lane."""
 
 from __future__ import annotations
 
@@ -140,15 +145,21 @@ def pairing_check_schedule(el, er, prep1, prep2):
 # programs
 # ---------------------------------------------------------------------------
 
-# operand bases of a slot reference: the program's three arguments, the
-# output staging area, the row's scratch, the constants, this step's lines
-# (the doubling lines of this Miller step, the addition lines of this one-bit)
+# operand bases of a traced slot reference: the program's three arguments,
+# the output staging area, the row's scratch, the constants, this step's
+# lines (the doubling lines of this Miller step, the addition lines of this
+# one-bit)
 ARG0, ARG1, ARG2, STAGE, SCRATCH, CONST, LINE, LINE_ADD = range(8)
 PROD, INV, LIN = range(3)  # item kinds
 
-# the row's slots (one Fp each, 12 words), as csrc/pairing.cu lays them out
+# the row's slots (one Fp each, 12 words), as csrc/pairing.cu lays them out:
+# f, m, a chain's cur and acc, the saved c, the affine points, the raw
+# coordinates, the constants (copied in at the row's start), this Miller
+# step's doubling and addition lines (copied in at each step: per pair lam
+# and c, two Fp each), the output staging area, then the scratch
 ROW_F, ROW_M, ROW_CUR, ROW_ACC, ROW_CS = 0, 12, 24, 36, 48
-ROW_PTS, ROW_RAW, ROW_STAGE, ROW_SCRATCH = 60, 64, 70, 82
+ROW_PTS, ROW_RAW, ROW_CONST, ROW_LINE, ROW_LINE_ADD, ROW_STAGE, ROW_SCRATCH = 60, 64, 70, 95, 103, 111, 123
+SLOT_WORDS = 12
 
 # program ids, in the order of the table's header
 PROG_AFFINE = 0
@@ -160,12 +171,36 @@ PROG_CUBE = 13
 PROG_TAIL = 14
 N_PROGS = 15
 
+# each program's arguments as row slots: the kernel copies a chain's cur into
+# ROW_CUR and ROW_ACC before its steps, so every program reads fixed slots
+# and a term of the table is one row offset
+ARGS = {PROG_AFFINE: (ROW_RAW,), PROG_EASY: (ROW_F,), PROG_CUBE: (ROW_M,), PROG_TAIL: (ROW_CUR, ROW_CS, ROW_F),
+        **{pid: (ROW_F, ROW_PTS) for pid in range(PROG_MILLER, PROG_EASY)},
+        **{pid: (ROW_ACC, ROW_CUR) for pid in range(PROG_CYC, PROG_CUBE)}}
+_BASE_SLOT = {STAGE: ROW_STAGE, SCRATCH: ROW_SCRATCH, CONST: ROW_CONST, LINE: ROW_LINE, LINE_ADD: ROW_LINE_ADD}
+
 # constants (kernel slots): one, then gamma_1 and gamma_2 as (6, 2)
 CONST_ONE, CONST_GAM1, CONST_GAM2 = 0, 1, 13
+N_CONST = 25
 # the ladders in the kernel: per pair the 63 doubling lines (lam, c), then
 # the addition lines of the one-bits (lam, c), 4 slots each
 N_ADD = BITS.count("1")
 LINE_PAIR_STRIDE = (len(BITS) + N_ADD) * 4
+# a combination's coefficients: their magnitudes summed over its negative
+# terms below COMBO_M (the multiple of p the kernel adds before its one
+# reduction), over its positive terms at most COMBO_POS; then the sum with
+# COMBO_M p lies in [p, 17 p), below 2^385
+COMBO_M, COMBO_POS = 9, 8
+# the fewest lanes a row runs with: an inversion stage fits in one pass
+MIN_LANES = 16
+# a stage's K is padded to a multiple of PAD: the kernel loads a
+# combination's terms PAD at a time
+PAD = 2
+
+
+def slot_of(pid: int, base: int, off: int) -> int:
+    """The row slot a traced reference (base, off) of program pid names."""
+    return (ARGS[pid][base] if base <= ARG2 else _BASE_SLOT[base]) + off
 
 
 class SymField:
@@ -264,23 +299,34 @@ class SymField:
         return self._one.expand(*shape, self.NB).clone()
 
 
-def _term(base: int, off: int, coef: int) -> int:
-    if not (0 < abs(coef) < 128 and 0 <= off < 4096):
-        raise ValueError(f"term out of range: base {base} off {off} coef {coef}")
-    return ((coef & 0xFF) << 16) | (base << 12) | off
+def _term(slot: int, coef: int) -> int:
+    """A term of the kernel's table: the slot's word offset in the row, then
+    the coefficient as a signed byte (0 pads a combination)."""
+    if not (abs(coef) < 128 and 0 <= slot < 1 << 16):
+        raise ValueError(f"term out of range: slot {slot} coef {coef}")
+    return (slot * SLOT_WORDS) << 8 | (coef & 0xFF)
+
+
+def decode_term(t: int) -> tuple[int, int]:
+    """(row slot, coefficient) of a table term."""
+    return (t >> 8) // SLOT_WORDS, ((t & 0xFF) ^ 0x80) - 0x80
 
 
 class _Tables:
-    """The flat int32 table of all programs: a header of N_PROGS program
-    offsets, then per program [n_stages, n_out, stage offsets...], per stage
-    [n_items, kind, item offsets...] (a stage's items are of one kind), per item [kind, dst, n, terms...(, n,
-    terms...)] with a slot reference (base << 12 | off) as dst and terms
-    ((coef & 0xff) << 16 | base << 12 | off)."""
+    """The programs and their flat int32 table. The table: a header of
+    N_PROGS program offsets, then per program [n_stages, n_out, stages...]
+    with its stages one after another. A stage is a header word (n_items |
+    kind << 8 | K << 10: a stage's items are of one kind) and its items, each
+    1 + ops K words (ops 2 for a product, else 1): the row word offset of its
+    destination, then per operand K terms (``_term``), padded to the stage's
+    largest combination K with zero-coefficient terms. Every reference is
+    resolved to a row slot (``slot_of``) when the table is written."""
 
     def __init__(self):
         self.words = [0] * N_PROGS
         self.scratch = 0
         self.stats: dict = {}
+        self.programs: dict = {}
 
     def add(self, pid: int, sym: SymField, outputs):
         """Compile the traced outputs into program `pid`. A linear node used
@@ -388,25 +434,13 @@ class _Tables:
         def ref(e):
             return (SCRATCH, slot[e]) if meta[e][0] != "in" else meta[e][1:]
 
-        def enc(t):
-            return [len(t)] + [_term(*ref(e), d) for e, d in t]
+        def refs(t):
+            return [(*ref(e), d) for e, d in t]
 
-        stages = []
-        for s in range(1, top + 1):
-            stages.append([[kind_of[meta[i][0]], _term(SCRATCH, slot[i], 1) & 0xFFFF, *sum(map(enc, ops[i]), [])]
-                           for i in by_level[s]])
-        stages.append([[LIN, _term(STAGE, k, 1) & 0xFFFF, *enc(t)] for k, t in enumerate(outs)])
-        w = self.words
-        w[pid] = len(w)
-        head = len(w)
-        w += [len(stages), len(outs)] + [0] * len(stages)
-        for s, st in enumerate(stages):
-            w[head + 2 + s] = len(w)
-            at = len(w)
-            w += [len(st), st[0][0] if st else LIN] + [0] * len(st)
-            for k, item in enumerate(st):
-                w[at + 2 + k] = len(w)
-                w += item
+        stages = [(kind_of[meta[by_level[s][0]][0]], [(ref(i), [refs(t) for t in ops[i]]) for i in by_level[s]])
+                  for s in range(1, top + 1)]
+        stages.append((LIN, [((STAGE, k), [refs(t)]) for k, t in enumerate(outs)]))
+        self.programs[pid] = (stages, len(outs))
         every = [t for i in items for t in ops[i]] + outs
         self.stats[pid] = {
             "products": sum(meta[i][0] == "mul" for i in items),
@@ -416,6 +450,25 @@ class _Tables:
             "terms": sum(map(len, every)),
             "max_coef": max((abs(d) for t in every for _e, d in t), default=0),
         }
+
+    def encode(self, pid: int):
+        """Append program pid to the table."""
+        stages, n_out = self.programs[pid]
+        w = self.words
+        w[pid] = len(w)
+        w += [len(stages), n_out]
+        for kind, items in stages:
+            if len(items) > 0xFF or kind == INV and len(items) > MIN_LANES:
+                raise ValueError(f"program {pid}: a stage of {len(items)} items of kind {kind}")
+            k = max(len(t) for _dst, ops in items for t in ops)
+            k += -k % PAD
+            w.append(len(items) | kind << 8 | k << 10)
+            for dst, ops in items:
+                w.append(slot_of(pid, *dst) * SLOT_WORDS)
+                for t in ops:
+                    if sum(-c for *_r, c in t if c < 0) >= COMBO_M or sum(c for *_r, c in t if c > 0) > COMBO_POS:
+                        raise ValueError(f"program {pid}: a combination's coefficients exceed the reduction's range")
+                    w += [_term(slot_of(pid, b, o), c) for b, o, c in t] + [0] * (k - len(t))
 
 
 def _fp12_input(sym, base):
@@ -436,7 +489,7 @@ def _trace(pid: int, tables: _Tables):
         add, mask = divmod(pid - PROG_MILLER, 3)
         live = (bool((mask + 1) & 1), bool((mask + 1) & 2))
         pts = S.input(ARG1, (2, 2))  # x0 x1 -y0 -y1
-        lines = torch.cat([S.input(base, (2, 1, 2, 2), [j * LINE_PAIR_STRIDE + k * 2 + c
+        lines = torch.cat([S.input(base, (2, 1, 2, 2), [j * 4 + k * 2 + c
                                                         for j in range(2) for k in range(2) for c in range(2)])
                            .reshape(2, 2, 2, S.NB) for base in (LINE, LINE_ADD)], 1)
         out = miller_step(_fp12_input(S, ARG0), pts[0], pts[1], lines, bool(add), live, S)
@@ -454,53 +507,114 @@ def _trace(pid: int, tables: _Tables):
     tables.add(pid, S, out)
 
 
-# the programs of the loops (the Miller steps, the chains' cyclotomic steps)
-# come first in the table: the kernel copies that head of the table into
-# shared memory
-HOT = (*range(PROG_MILLER, PROG_EASY), PROG_CYC, PROG_CYC + 1)
-
-
 @functools.lru_cache(maxsize=None)
 def _compiled() -> _Tables:
     tables = _Tables()
-    for pid in HOT:
-        _trace(pid, tables)
-    tables.hot_words = len(tables.words)
     for pid in range(N_PROGS):
-        if pid not in HOT:
-            _trace(pid, tables)
+        _trace(pid, tables)
+    for pid in range(N_PROGS):
+        tables.encode(pid)
+    tables.words += [0] * (-len(tables.words) % 4)  # the kernel copies it in 16-byte words
     return tables
 
 
 def kernel_tables() -> tuple[np.ndarray, int, int]:
     """(the int32 program table, the scratch slots a row needs, the words
-    at the head of the table that hold the HOT programs)."""
+    of the table the kernel holds in shared memory: all of them)."""
     t = _compiled()
-    return np.asarray(t.words, dtype=np.int64).astype(np.int32), t.scratch, t.hot_words
+    return np.asarray(t.words, dtype=np.int64).astype(np.int32), t.scratch, len(t.words)
+
+
+def program_refs(pid: int) -> tuple[list, int]:
+    """Program pid before its references are resolved: (stages, n_out), a
+    stage (kind, items), an item ((base, off) of its destination, its
+    operands as [(base, off, coef), ...])."""
+    return _compiled().programs[pid]
+
+
+def row_programs(mask: int = 3) -> list[int]:
+    """The programs a row runs in order, with the live points `mask` (1:
+    el's, 2: er's, 3: both)."""
+    pids = [PROG_AFFINE] + [PROG_MILLER + 3 * (bit == "1") + mask - 1 for bit in BITS] + [PROG_EASY]
+    for step in range(5):
+        pids += [PROG_CYC + (bit == "1") for bit in BITS] + [PROG_COMBINE + (0, 0, 1, 2, 2)[step]]
+    return pids + [PROG_CUBE, PROG_TAIL]
+
+
+def _stage_path(n: int, kind: int, k: int, lanes: int) -> tuple[int, int, int]:
+    """(product passes, terms, reductions) of one stage on the critical lane
+    (lane 0, which holds the stage's first item) of a row of `lanes` lanes.
+    A product stage runs passes of two items a lane (items i and i + lanes)
+    and so four combinations, two when its items fit one pass of single
+    items; a linear stage one item a lane, or passes of two when its items
+    outnumber the lanes."""
+    if kind == PROD:
+        passes = -(-n // (2 * lanes))
+        return passes, passes * (4 if n > lanes else 2) * k, passes * (4 if n > lanes else 2)
+    if n <= lanes:
+        return 0, k, 1
+    passes = -(-n // (2 * lanes))
+    return 0, 2 * passes * k, 2 * passes
+
+
+def critical_path(pids, lanes: int) -> dict:
+    """The critical path of running programs `pids` in order: stages (each a
+    barrier), product passes (one f_mul2 each), the terms its combinations
+    read (the padding included) and its combinations (one reduction each)."""
+    out = {"stages": 0, "product_passes": 0, "terms": 0, "reductions": 0}
+    tab = _compiled().words
+    for pid in pids:
+        at = tab[pid]
+        n_stages = tab[at]
+        at += 2
+        for _ in range(n_stages):
+            hdr = tab[at]
+            n, kind, k = hdr & 0xFF, hdr >> 8 & 3, hdr >> 10
+            passes, terms, red = _stage_path(n, kind, k, lanes)
+            out["stages"] += 1
+            out["product_passes"] += passes
+            out["terms"] += terms
+            out["reductions"] += red
+            at += 1 + n * (1 + (2 if kind == PROD else 1) * k)
+    return out
 
 
 def program_stats() -> dict:
     """Per program: products, inversions, stages, scratch slots, terms, the
-    largest coefficient and each stage's width."""
-    return _compiled().stats
+    largest coefficient, and its critical path (``critical_path``) at 32 and
+    16 lanes a row; under "row", the critical path of a whole row with two
+    live points."""
+    t = _compiled()
+    out = {pid: dict(st, critical={g: critical_path([pid], g) for g in (32, 16)}) for pid, st in t.stats.items()}
+    out["row"] = {g: critical_path(row_programs(), g) for g in (32, 16)}
+    return out
 
 
 def row_slots(scratch: int) -> int:
     return ROW_SCRATCH + scratch
 
 
+def _words_array(name: str, x: int) -> str:
+    body = ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(SLOT_WORDS))
+    return f"static __constant__ uint32_t {name}[{SLOT_WORDS}] = {{{body}}};\n"
+
+
 def kernel_header() -> str:
-    """The constants csrc/pairing.cu shares with this module, as C++."""
+    """The constants csrc/pairing.cu shares with this module, as C++: the
+    row layout, the program ids, the item kinds; the reduction's COMBO_M p
+    and 2^384 - p (words) and its divisor (p >> 360) + 1."""
     names = {
-        "ARG0": ARG0, "ARG1": ARG1, "ARG2": ARG2, "STAGE": STAGE, "SCRATCH": SCRATCH, "CONST": CONST,
-        "LINE": LINE, "LINE_ADD": LINE_ADD, "LINE_PAIR_STRIDE": LINE_PAIR_STRIDE, "N_ADD": N_ADD, "PROD": PROD, "INV": INV, "LIN": LIN,
+        "LINE_PAIR_STRIDE": LINE_PAIR_STRIDE, "PAD": PAD, "PROD": PROD, "INV": INV, "LIN": LIN,
         "ROW_F": ROW_F, "ROW_M": ROW_M, "ROW_CUR": ROW_CUR, "ROW_ACC": ROW_ACC, "ROW_CS": ROW_CS,
-        "ROW_PTS": ROW_PTS, "ROW_RAW": ROW_RAW, "ROW_STAGE": ROW_STAGE,
-        "ROW_SCRATCH": ROW_SCRATCH, "PROG_AFFINE": PROG_AFFINE, "PROG_MILLER": PROG_MILLER,
+        "ROW_PTS": ROW_PTS, "ROW_RAW": ROW_RAW, "ROW_CONST": ROW_CONST, "ROW_LINE": ROW_LINE,
+        "ROW_LINE_ADD": ROW_LINE_ADD, "ROW_STAGE": ROW_STAGE, "ROW_SCRATCH": ROW_SCRATCH, "N_CONST": N_CONST,
+        "PROG_AFFINE": PROG_AFFINE, "PROG_MILLER": PROG_MILLER,
         "PROG_EASY": PROG_EASY, "PROG_CYC": PROG_CYC, "PROG_COMBINE": PROG_COMBINE, "PROG_CUBE": PROG_CUBE,
         "PROG_TAIL": PROG_TAIL,
     }
-    return "".join(f"static constexpr int PAIR_{k} = {v};\n" for k, v in names.items())
+    return ("".join(f"static constexpr int PAIR_{k} = {v};\n" for k, v in names.items())
+            + _words_array("PAIR_COMBO_MP", COMBO_M * P) + _words_array("PAIR_NEGP", (1 << 384) - P)
+            + f"static constexpr uint32_t PAIR_QDIV = 0x{(P >> 360) + 1:x}u;\n")
 
 
 # ---------------------------------------------------------------------------
@@ -522,48 +636,34 @@ def const_ints() -> list[int]:
     return [kernel_int(1)] + [kernel_int(c) for k in (1, 2) for pair in gam[k] for c in pair]
 
 
-def _decode(t: int):
-    return (((t >> 16) & 0xFF) ^ 0x80) - 0x80, (t >> 12) & 0xF, t & 0xFFF
-
-
-def _run(tab, pid, mem, bases, dst):
-    """Run program `pid`: mem maps a base id to (list, start); the outputs
-    go to the staging area, then to `dst` (a row offset) when given."""
-    row = mem[STAGE][0]
-
-    def load(t):
-        coef, base, off = _decode(t)
-        arr, start = mem[base] if base in (STAGE, SCRATCH, CONST, LINE, LINE_ADD) else (row, bases[base])
-        return coef * arr[start + off]
-
-    def combo(at):
-        n = tab[at]
-        return sum(load(tab[at + 1 + k]) for k in range(n)) % P, at + 1 + n
-
-    head = tab[pid]
-    n_stages, n_out = tab[head], tab[head + 1]
-    for s in range(n_stages):
-        st = tab[head + 2 + s]
+def _run(tab, pid: int, row: list, dst=None):
+    """Run program `pid` on the row's slots with the kernel's control flow:
+    stage by stage, each item's combinations, then its product, inversion or
+    copy; the outputs go to the staging area, then to slot `dst` when given."""
+    at = tab[pid]
+    n_stages, n_out = tab[at], tab[at + 1]
+    at += 2
+    for _ in range(n_stages):
+        hdr = tab[at]
+        n, kind, k = hdr & 0xFF, hdr >> 8 & 3, hdr >> 10
+        ops = 2 if kind == PROD else 1
         writes = []
-        for k in range(tab[st]):
-            at = tab[st + 2 + k]
-            kind, dst_ref = tab[at], tab[at + 1]
-            a, at = combo(at + 2)
+        for i in range(n):
+            item = at + 1 + i * (1 + ops * k)
+            v = [sum(c * row[s] for s, c in map(decode_term, tab[item + 1 + o * k:item + 1 + (o + 1) * k])) % P
+                 for o in range(ops)]
             if kind == PROD:
-                b, _ = combo(at)
-                v = a * b * _RINV % P
+                x = v[0] * v[1] * _RINV % P
             elif kind == INV:
-                v = pow(a, P - 2, P) * R_K * R_K % P if a else 0  # Fermat: a R -> a^-1 R
+                x = pow(v[0], P - 2, P) * R_K * R_K % P if v[0] else 0  # Fermat: a R -> a^-1 R
             else:
-                v = a
-            writes.append((dst_ref, v))
-        for dst_ref, v in writes:
-            _c, base, off = _decode(dst_ref)
-            arr, start = mem[base]
-            arr[start + off] = v
+                x = v[0]
+            writes.append((tab[item] // SLOT_WORDS, x))
+        for s, x in writes:
+            row[s] = x
+        at += 1 + n * (1 + ops * k)
     if dst is not None:
-        stage = mem[STAGE][1]
-        row[dst : dst + n_out] = row[stage : stage + n_out]
+        row[dst:dst + n_out] = row[ROW_STAGE:ROW_STAGE + n_out]
 
 
 def compact_ladder(lines: np.ndarray) -> np.ndarray:
@@ -580,31 +680,33 @@ def interpret_row(tab, scratch: int, el: list[int], er: list[int], lines: np.nda
     compact ladder (compact_ladder) of kernel-domain integers. Returns the
     verdict."""
     row = [0] * row_slots(scratch)
-    consts = const_ints()
-    ladder = [int(v) for v in np.asarray(lines).reshape(-1)]
-    mem = {STAGE: (row, ROW_STAGE), SCRATCH: (row, ROW_SCRATCH), CONST: (consts, 0)}
+    row[ROW_CONST:ROW_CONST + N_CONST] = const_ints()
+    ladder = np.asarray(lines)
     for c in range(3):
         row[ROW_RAW + 2 * c], row[ROW_RAW + 2 * c + 1] = el[c], er[c]
     live = [row[ROW_RAW + 4 + j] != 0 for j in range(2)]
     mask = live[0] | live[1] << 1
     if not mask:
         return True  # e(O, Q1) e(O, Q2) = 1
-    _run(tab, PROG_AFFINE, mem, {ARG0: ROW_RAW}, ROW_PTS)
-    row[ROW_F] = kernel_int(1)
+    _run(tab, PROG_AFFINE, row, ROW_PTS)
+    row[ROW_F:ROW_F + 12] = [kernel_int(1)] + [0] * 11
+    n_add = 0
     for i, bit in enumerate(BITS):
-        mem[LINE] = (ladder, 4 * i)
-        mem[LINE_ADD] = (ladder, 4 * (len(BITS) + BITS[:i].count("1")))
-        _run(tab, PROG_MILLER + 3 * (bit == "1") + mask - 1, mem, {ARG0: ROW_F, ARG1: ROW_PTS}, ROW_F)
-    _run(tab, PROG_EASY, mem, {ARG0: ROW_F}, ROW_M)
+        for j in range(2):  # this step's lines into the row
+            row[ROW_LINE + 4 * j:ROW_LINE + 4 * j + 4] = [int(v) for v in ladder[j, i].reshape(-1)]
+            if bit == "1":
+                row[ROW_LINE_ADD + 4 * j:ROW_LINE_ADD + 4 * j + 4] = [
+                    int(v) for v in ladder[j, len(BITS) + n_add].reshape(-1)]
+        _run(tab, PROG_MILLER + 3 * (bit == "1") + mask - 1, row, ROW_F)
+        n_add += bit == "1"
+    _run(tab, PROG_EASY, row, ROW_M)
     cur = ROW_M
     for step in range(5):
-        acc = cur
+        row[ROW_CUR:ROW_CUR + 12] = row[ROW_ACC:ROW_ACC + 12] = row[cur:cur + 12]
         for bit in BITS:
-            _run(tab, PROG_CYC + (bit == "1"), mem, {ARG0: acc, ARG1: cur}, ROW_ACC)
-            acc = ROW_ACC
-        dst = ROW_CS if step == 2 else ROW_CUR  # m stays for the tail, c after step 2
-        _run(tab, PROG_COMBINE + (0, 0, 1, 2, 2)[step], mem, {ARG0: ROW_ACC, ARG1: cur}, dst)
-        cur = dst
-    _run(tab, PROG_CUBE, mem, {ARG0: ROW_M}, ROW_F)
-    _run(tab, PROG_TAIL, mem, {ARG0: cur, ARG1: ROW_CS, ARG2: ROW_F}, ROW_ACC)
-    return row[ROW_ACC : ROW_ACC + 12] == [kernel_int(1)] + [0] * 11
+            _run(tab, PROG_CYC + (bit == "1"), row, ROW_ACC)
+        cur = ROW_CS if step == 2 else ROW_CUR  # m stays for the tail, c after step 2
+        _run(tab, PROG_COMBINE + (0, 0, 1, 2, 2)[step], row, cur)
+    _run(tab, PROG_CUBE, row, ROW_F)  # m^3 where f was
+    _run(tab, PROG_TAIL, row, ROW_ACC)
+    return row[ROW_ACC:ROW_ACC + 12] == [kernel_int(1)] + [0] * 11

@@ -1,20 +1,22 @@
 """Probe of the pairing kernel (``csrc/pairing.cu``) on one GPU.
 
-    python3 -m plutus_halo2_tpu_torch.tools.pairing_probe [--batch 1024] [--check 1,17,129,1024]
+    python3 -m plutus_halo2_tpu_torch.tools.pairing_probe [--rows 1024,128,64] [--check 1,17,64,128,129,1024]
 
 Checks the kernel against its plain version (``cuda_pairing.pairing_check_plain``)
-on B = 1, 17, 129 and 1024 rows of e([r]G, [s]G2) e([t]G, G2) (true where
-t = -r s, the identity on either side in some rows, (O, O) in row 0), at
-two lane-group widths; then, at B rows and at the RLC group check's B / 8,
-prints each row's phases in SM cycles from the kernel's ``clock64()``
-marks (median over the rows: the affine conversion, the Miller loop, the
-easy part, the five chains, the tail; the cycles in stages of products,
-of linear combinations and of inversions, and the stage count; the
-fastest and slowest row, the median row with two points and with one) and
-the kernel's device ms
-(``utils.profiling.device_ms``) per (lanes per row, rows per block); last
-the card's ``nvidia-smi`` name and power limit. A wrong verdict raises.
-Needs a CUDA device."""
+on B = 1, 17, 64, 128, 129 and 1024 rows of e([r]G, [s]G2) e([t]G, G2)
+(true where t = -r s, the identity on either side in some rows, (O, O) in
+row 0), at two lane-group widths; then, at each of --rows rows, prints each
+row's phases in SM cycles from the kernel's ``clock64()`` marks (median
+over the rows: the affine conversion, the Miller loop, the easy part, the
+five chains, the tail; the cycles in stages of products, of linear
+combinations and of inversions, and the stage count; the fastest and
+slowest row, the median row with two points and with one), the median
+two-point row's cycles per stage and per term of its critical path
+(``pairing_program.program_stats()["row"]``: the terms its combinations
+read), and the kernel's device ms (``utils.profiling.device_ms``) per (lanes
+per row, rows per block); last the registers, stack and spills ``-Xptxas -v``
+reported for pairing.cu's functions, and the card's ``nvidia-smi`` name and
+power limit. A wrong verdict raises. Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import subprocess
 import numpy as np
 import torch
 
-from ..ops import cuda_curve, cuda_pairing
+from ..ops import _build, cuda_curve, cuda_pairing, pairing_program
 from ..ops import curve as tc
 from ..ops import pairing as tp
 from ..ops.limb import FP_SPEC, FR_SPEC
@@ -60,10 +62,18 @@ def check_rows(B: int, seed: int, dev):
     return sides[:B].contiguous(), sides[B:].contiguous(), torch.tensor(want, device=dev)
 
 
+def ptxas_lines(source: str) -> list[str]:
+    """The ``-Xptxas -v`` lines of `source` in the kernel library's build
+    log: each function's stack frame and spills, each kernel's registers."""
+    part = next((p for p in _build.build_log().split("== ") if p.startswith(source)), "")
+    keys = ("Function properties", "stack frame", "Used")
+    return [line.strip() for line in part.splitlines() if any(k in line for k in keys)]
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--check", default="1,17,129,1024", help="row counts checked against the plain version")
+    ap.add_argument("--rows", default="1024,128,64", help="row counts of the phase split and the timings")
+    ap.add_argument("--check", default="1,17,64,128,129,1024", help="row counts checked against the plain version")
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -72,6 +82,7 @@ def main(argv=None) -> dict:
     pp = cuda_pairing.PreparedPair(tp.prepare_g2(rc.g2_mul(rc.G2_GEN, S)), tp.prepare_g2(rc.G2_GEN))
     default = cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK
     out: dict = {"phases": {}, "ms": {}}
+    path = pairing_program.program_stats()["row"]
     try:
         for B in (int(x) for x in args.check.split(",") if x):
             el, er, want = check_rows(B, B, dev)
@@ -82,8 +93,9 @@ def main(argv=None) -> dict:
                 if not torch.equal(cuda_pairing.pairing_check(el, er, pp), want):
                     raise SystemExit(f"pairing_probe: kernel wrong at B = {B}, {lanes} lanes, {rows} rows per block")
             print(f"B = {B}: kernel == plain == construction ({int(want.sum())} true)", flush=True)
-        el, er, want = check_rows(args.batch, 5, dev)
-        for n in (args.batch, args.batch // 8):
+        sizes = [int(x) for x in args.rows.split(",") if x]
+        el, er, want = check_rows(max(sizes), 5, dev)
+        for n in sizes:
             for lanes, rows in CONFIGS:
                 cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = lanes, rows
                 key = f"{lanes}x{rows or 'auto'}"
@@ -102,13 +114,19 @@ def main(argv=None) -> dict:
                           if bool((live & ~both).any()) else None}
                 ms = device_ms(lambda: cuda_pairing.pairing_check(el[:n], er[:n], pp), ["pairing_kernel"],
                                calls=args.reps)
-                out["phases"][f"{n}/{key}"] = dict(zip(PHASES + STAGE_KINDS, cyc), total=total)
+                crit = path.get(lanes)
+                per = ({"per_stage": spread["both_live_median"] / crit["stages"],
+                        "per_term": spread["both_live_median"] / crit["terms"], "critical_path": crit}
+                       if crit else {})
+                out["phases"][f"{n}/{key}"] = dict(zip(PHASES + STAGE_KINDS, cyc), total=total, **per)
                 out["ms"][f"{n}/{key}"] = ms
                 print(json.dumps({"rows": n, "lanes": lanes, "rows_per_block": rows, "device_ms": ms,
-                                  "cycles": dict(zip(PHASES + STAGE_KINDS, cyc), total=total, **spread)}),
+                                  "cycles": dict(zip(PHASES + STAGE_KINDS, cyc), total=total, **spread), **per}),
                       flush=True)
     finally:
         cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = default
+    for line in ptxas_lines("pairing.cu"):
+        print("[ptxas]", line)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip().splitlines()[0])

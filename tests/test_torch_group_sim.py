@@ -3,7 +3,8 @@ csrc/decompress.cu and csrc/subgroup.cu over csrc/group.cuh; csrc/pow.cu
 over csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16 and
 int8 chains, csrc/mma_chain.cu; the Montgomery-product test kernel,
 csrc/field_test.cu; the prover's Fr polynomial kernels, csrc/poly.cu; the
-verifier's Fr glue kernels, csrc/fr_glue.cu) run on the CPU: their sources compiled by g++ through
+verifier's Fr glue kernels, csrc/fr_glue.cu; the pairing kernel,
+csrc/pairing.cu) run on the CPU: their sources compiled by g++ through
 a small CUDA shim and run with one thread per lane, __syncwarp a barrier
 of the lane's group, __syncthreads one of the block, a shuffle or a ballot
 an exchange through the group's slots between two such barriers (a 64-bit
@@ -31,7 +32,10 @@ at ragged counts, one and several blocks, the slabs 0 or 8 bytes past a
 (ph2_fr_ntt and the three elementwise ones, each launch a grid of CPU
 threads at the launch's own geometry: bit reversal, powers tables,
 twiddles, one launch a stage) word for word with ops/poly.py's plain
-versions at sizes from 1 to 2^12 and ragged lengths; the Fr glue through
+versions at sizes from 1 to 2^12 and ragged lengths; the pairing kernel's
+verdicts on true, false and identity rows at both lane-group widths, rows
+ragged against the rows per block, and its stage count against
+pairing_program's critical path (its carry chain in plain C); the Fr glue through
 its entry point on ops/cuda_fr.layout's geometry limb for limb with
 ops/limb.py's mont_mul, add, sub, sum_lazy and dot_lazy (broadcast and
 strided operands, ragged counts in one and several blocks, the domain's
@@ -52,7 +56,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from plutus_halo2_tpu_torch.ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_fr, cuda_mma, cuda_poly  # noqa: E402
-from plutus_halo2_tpu_torch.ops import limb  # noqa: E402
+from plutus_halo2_tpu_torch.ops import cuda_pairing, limb, pairing_program  # noqa: E402
+from plutus_halo2_tpu_torch.ops import pairing as tp  # noqa: E402
 from plutus_halo2_tpu_torch.ops import poly as tpoly  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC, FR_SPEC, window_digits  # noqa: E402
@@ -222,6 +227,7 @@ alignas(16) uint32_t smem[1 << 16];
 template <class F> void sim_launch(unsigned blocks, int threads, F body);
 #include "poly.cu"
 #include "fr_glue.cu"
+#include "pairing.cu"
 
 template <class T> std::vector<T> readf(const char* path, size_t n) {
   std::vector<T> v(n);
@@ -361,6 +367,24 @@ int main(int argc, char** argv) {
     if (out.back() != -7) return 4;
     out.pop_back();
     writef("out.bin", out);
+    return 0;
+  }
+  if (argv[1][0] == 'q') {  // the pairing kernel: B rows, lanes, rows a block, row slots, table and ladder words
+    const int B = atoi(argv[2]), lanes = atoi(argv[3]), rows = atoi(argv[4]), row_slots = atoi(argv[5]),
+              tab_words = atoi(argv[6]), line_words = atoi(argv[7]);
+    auto el = readf<int64_t>("el.bin", (size_t)B * 75), er = readf<int64_t>("er.bin", (size_t)B * 75);
+    auto lines = readf<uint32_t>("lines.bin", line_words);
+    auto tab = readf<int>("tab.bin", tab_words);
+    auto consts = readf<uint32_t>("consts.bin", (size_t)12 * PAIR_N_CONST);
+    std::vector<int> out(B, -1);
+    std::vector<long long> ph((size_t)B * 10, 0);
+    run_blocks(B, lanes, rows, [&] {
+      auto kernel = lanes == 16 ? pairing_kernel<16> : pairing_kernel<32>;
+      kernel(el.data(), er.data(), lines.data(), tab.data(), consts.data(), out.data(), ph.data(), nullptr, B,
+             row_slots, tab_words);
+    });
+    writef("out.bin", out);
+    writef("ph.bin", ph);
     return 0;
   }
   if (argv[1][0] == 'x') {  // one m16n8k16 product from every lane's fragments
@@ -922,3 +946,29 @@ def test_fr_glue_kernels_on_cpu_threads(sim, name, threads, copies):
     else:
         want = limb.dot_lazy(FR_SPEC, a, b, dim)
     assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("lanes,rows", [(16, 3), (32, 2)])
+def test_pairing_kernel_on_cpu_threads(sim, lanes, rows):
+    """csrc/pairing.cu's kernel (its tables, slot layout and operand path;
+    the carry chain of a combination's reduction in plain C) on seven rows
+    of e(el, [s]G2) e(er, G2): true where er = -[s] el, the identity on
+    either side and on both, ragged against the rows per block. A two-point
+    row runs the stages of pairing_program's critical path."""
+    s, g = 0xC0FFEE, rc.G1_GEN
+    sides = [(None, None), (rc.g1_mul(g, 5), rc.g1_neg(rc.g1_mul(g, 5 * s))), (rc.g1_mul(g, 7), rc.g1_mul(g, 11)),
+             (None, rc.g1_mul(g, 3)), (rc.g1_mul(g, 9), None), (rc.g1_mul(g, 13), rc.g1_neg(rc.g1_mul(g, 13 * s))),
+             (rc.g1_mul(g, 2), rc.g1_mul(g, 2 * s))]
+    want = [1, 1, 0, 0, 0, 1, 0]
+    pp = cuda_pairing.PreparedPair(tp.prepare_g2(rc.g2_mul(rc.G2_GEN, s)), tp.prepare_g2(rc.G2_GEN))
+    for j, f in enumerate(("el.bin", "er.bin")):
+        np.stack([tc.host_point_to_mont(row[j]) for row in sides]).astype(np.int64).tofile(sim / f)
+    tab, scratch, tab_words = pairing_program.kernel_tables()
+    tab.tofile(sim / "tab.bin")
+    pp.lines.astype(np.int32).tofile(sim / "lines.bin")
+    np.array([w for v in pairing_program.const_ints() for w in _build.words(v, 12)], np.uint32).tofile(sim / "consts.bin")
+    _run(sim, "q", len(sides), lanes, rows, pairing_program.row_slots(scratch), tab_words, pp.lines.size)
+    assert np.fromfile(sim / "out.bin", np.int32).tolist() == want
+    stages = np.fromfile(sim / "ph.bin", np.int64).reshape(-1, 10)[:, 9]
+    assert stages[1] == stages[5] == stages[6] == pairing_program.program_stats()["row"][lanes]["stages"]
+    assert stages[0] == 0 and 0 < stages[3] < stages[1] and 0 < stages[4] < stages[1]

@@ -338,7 +338,7 @@ def test_bf16_chain_kernel(dev, B, monkeypatch):
         assert torch.equal(cuda_mma.bf16_chain(m_d, v_d).cpu(), want), warps
 
 
-@pytest.mark.parametrize("B", [1, 17, 129, 1024])
+@pytest.mark.parametrize("B", [1, 17, 64, 128, 129, 1024])
 def test_pairing_kernel(dev, B):
     """Rows of e([r]G, [s]G2) e([t]G, G2): true where t = -r s (rows 0, 2
     mod 4), false otherwise, the identity on the left (r = 0) or the right

@@ -167,9 +167,48 @@ def test_programs_keep_the_pallas_stacks():
     assert stats[prog.PROG_CYC + 1]["products"] == cyc + mul
     assert stats[prog.PROG_CUBE]["products"] == sqr + mul
     assert stats[prog.PROG_AFFINE]["inversions"] == 2 and stats[prog.PROG_EASY]["inversions"] == 1
-    _tab, scratch, hot_words = prog.kernel_tables()
+    _tab, scratch, tab_words = prog.kernel_tables()
     assert prog.row_slots(scratch) * 48 < 16384  # a row's shared memory
-    assert hot_words * 4 < 65536  # the programs of the loops, in shared memory
+    # the ladders, the whole table and the most rows a block holds, in the
+    # 227 KB of shared memory a block can have
+    ladder_words = 2 * prog.LINE_PAIR_STRIDE * 12
+    assert 4 * (ladder_words + tab_words + cuda_pairing.MAX_ROWS_PER_BLOCK * prog.row_slots(scratch) * 12) <= 232448
+
+
+def test_kernel_tables_resolve_every_reference():
+    """Every term of the table names the slot its traced reference (base,
+    offset) resolves to, with its coefficient, in order; a stage's header
+    holds its items, kind and K, the largest combination rounded up to PAD,
+    and the padding terms carry coefficient 0. A row with two live points
+    keeps the critical path of 3,345 stages and 560 product passes at 32
+    lanes."""
+    tab, _scratch, tab_words = prog.kernel_tables()
+    tab = tab.tolist()
+    assert tab_words == len(tab) and len(tab) % 4 == 0
+    padded = 0
+    for pid in range(prog.N_PROGS):
+        stages, n_out = prog.program_refs(pid)
+        at = tab[pid]
+        assert tab[at:at + 2] == [len(stages), n_out]
+        at += 2
+        for kind, items in stages:
+            n, k = len(items), max(len(t) for _dst, ops in items for t in ops)
+            k += -k % prog.PAD
+            assert tab[at] == n | kind << 8 | k << 10
+            at += 1
+            for dst, ops in items:
+                assert tab[at] == prog.slot_of(pid, *dst) * 12
+                at += 1
+                for t in ops:
+                    got = [prog.decode_term(x) for x in tab[at:at + k]]
+                    assert got[:len(t)] == [(prog.slot_of(pid, b, o), c) for b, o, c in t]
+                    assert all(c == 0 for _slot, c in got[len(t):])
+                    padded += k - len(t)
+                    at += k
+    assert padded > 0
+    row = prog.program_stats()["row"]
+    assert (row[32]["stages"], row[32]["product_passes"]) == (3345, 560)
+    assert row[16]["stages"] == 3345 and row[32]["reductions"] < row[32]["terms"]
 
 
 def test_compact_ladder_keeps_the_addition_lines_of_the_one_bits():
