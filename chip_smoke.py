@@ -32,8 +32,8 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      verifier path below prints the glue's launches by op, its layout
      copies and its Fr ops on the plain path with a CUDA tensor, and fails
      unless the glue launched and the last two read 0;
-  4. kernels: transcript (on the batch's buffers at 4 and at 1 lane a
-     compression, at B = 1 and 17; against hashlib with 200 squeezes in
+  4. kernels: transcript (on the batch's buffers, at B = 1 and 17;
+     against hashlib with 200 squeezes in
      rounds and on 40 KB and 300 KB transcripts; one compression's latency
      and the chain's floor), Fr pow, Fp pow, MSM (at 5-bit windows, at
      the stage probe's 4, and at the RLC aggregation's (B / 4, 8)), pairing,
@@ -434,10 +434,9 @@ def corrupt_hint(hints):
     return hints
 
 
-def transcript_checks(buf, lengths, p1, p2, rng):
-    """The transcript kernel beside the default: at 1 lane a compression on
-    the batch's buffers, at ragged B = 1 and 17, each against the plain
-    Blake2b; with 200 squeezes (more than a row's groups: two rounds) at
+def transcript_checks(buf, lengths, rng):
+    """The transcript kernel beside the batch's check: at ragged B = 1 and
+    17 against the plain Blake2b; with 200 squeezes (more than a row's groups: two rounds) at
     B = 1 and 17, and on long transcripts (40 KB at B = 1024: fewer rows a
     block; 300 KB at B = 3: no row's bytes fit in shared memory, every block
     read from global memory), against hashlib; then one compression's
@@ -455,13 +454,6 @@ def transcript_checks(buf, lengths, p1, p2, rng):
         g1, g2 = cuda_blake.transcript_hashes(b, lengths)
         return torch.equal(g1, want1) and torch.equal(g2, want2)
 
-    default = cuda_blake.TRANSCRIPT_LANES
-    try:
-        cuda_blake.TRANSCRIPT_LANES = 1
-        if not same(buf, p1, p2):
-            _fail("transcript kernel at 1 lane a compression differs from the plain Blake2b")
-    finally:
-        cuda_blake.TRANSCRIPT_LANES = default
     for n in (1, 17):
         b = torch.from_numpy(rng.integers(0, 256, size=(n, buf.shape[1]), dtype=np.uint8)).to(buf.device)
         if not same(b, *cuda_blake.transcript_hashes_plain(b, lengths)):
@@ -473,14 +465,14 @@ def transcript_checks(buf, lengths, p1, p2, rng):
         w1, w2 = _hashlib_digests(b, ls)
         if not (np.array_equal(g1.cpu().numpy(), w1) and np.array_equal(g2.cpu().numpy(), w2)):
             _fail(f"transcript kernel differs from hashlib's Blake2b at B = {n}, {T} bytes, {len(ls)} squeezes")
-    print(f"[kernel] transcript exact at 1 and {default} lanes a compression, at B = 1, 17; against hashlib "
+    print(f"[kernel] transcript exact at B = 1, 17; against hashlib "
           f"at 200 squeezes (in rounds), B = 1, 17, and at 40 KB (B = 1024) and 300 KB (B = 3, unstaged)")
     max_fb = max((n - 1) // 128 for n in lengths)
     t = [device_ms(lambda: cuda_blake.transcript_hashes(buf, ls), ["transcript_kernel"], calls=20)
          for ls in (lengths, [min(n, 128) for n in lengths])]
     comp_ms = (t[0] - t[1]) / max_fb
     print(f"[kernel] transcript: one compression {comp_ms * 1e3:.4f} us at {buf.shape[0]} rows "
-          f"({cuda_blake.TRANSCRIPT_LANES} lanes; {t[0]:.4f} ms, {t[1]:.4f} with the lengths cut to 128); "
+          f"({t[0]:.4f} ms, {t[1]:.4f} with the lengths cut to 128); "
           f"chain floor {max_fb + 2} x = {(max_fb + 2) * comp_ms:.4f} ms")
 
 
@@ -749,8 +741,7 @@ def main() -> int:
         if not torch.equal(got, want):
             bad = int((got != want).any(-1).sum())
             _fail(f"{spec.name} mont_mul kernel differs from the plain product on {bad} of 65536")
-        print(f"[field] {spec.name} mont_mul kernel == plain on 65536 pairs "
-              f"({cuda_field.MONT_MUL_THREADS} threads a block)")
+        print(f"[field] {spec.name} mont_mul kernel == plain on 65536 pairs")
         if spec is FP_SPEC:  # one CIOS product per pair; each pair read, its product written
             record("mont_mul", "plutus_halo2_tpu_torch/csrc/field_test.cu", "tests/test_pallas_core.py:139", 0,
                    _times(lambda: kern(a, b), "mont_mul_kernel", 20),
@@ -785,7 +776,7 @@ def main() -> int:
                   f"{int((got != want).any(-1).sum())} elements")
     if cuda_fr.layout_copies != copies:
         _fail(f"fr glue: {cuda_fr.layout_copies - copies} layout copies at the verifier's shapes")
-    print(f"[field] fr glue kernels == plain at B = {B}: {', '.join(glue_checks)} ({cuda_fr.THREADS} threads a block, "
+    print(f"[field] fr glue kernels == plain at B = {B}: {', '.join(glue_checks)} ("
           f"launches {({f.__name__: f.launches for f in GLUE_OPS})}, 0 layout copies)")
     record("fr_glue", "plutus_halo2_tpu_torch/csrc/fr_glue.cu", "none (the plain-torch Fr glue, ops/limb.py)", 0,
            _times(lambda: cuda_fr.mul(x[:, None, :], consts), "fr_glue_mul", 20),
@@ -844,7 +835,7 @@ def main() -> int:
            max(limb_err(h1, p1), limb_err(h2, p2)),
            _times(lambda: cuda_blake.transcript_hashes(buf, lengths), "transcript_kernel", 20), plain_ms,
            _bound_ms(B * _blake_ops(lengths), buf.numel() + 8 * (h1.numel() + h2.numel())))
-    transcript_checks(buf, lengths, p1, p2, rng)
+    transcript_checks(buf, lengths, rng)
 
     # pow: the Fr inversion root (B, 1) and the Fp sqrt ladder (B, 10)
     n_pts = len(verifier.layout.point_offsets)
@@ -866,8 +857,6 @@ def main() -> int:
         record(name, "plutus_halo2_tpu_torch/csrc/pow.cu", "plutus_halo2_tpu/ops/pallas_field.py:32",
                limb_err(got, want), _times(lambda: kern(x, e), "pow_kernel", 10), plain_ms,
                _bound_ms(ops, 2 * 8 * x.numel()))
-    print(f"[kernel] pow: {cuda_field.POW_FR_LANES} lanes per Fr element, {cuda_field.POW_FP_LANES} per Fp "
-          f"element, {cuda_field.POW_ROWS} elements per block")
 
     # MSM at the multi-open shape (K = 16 after dedup): random G1 points
     # (one identity among them), random scalars (some zero, one q - 1)
@@ -918,8 +907,6 @@ def main() -> int:
     bound = msm_bound(pts8, sc8)
     print(f"[kernel] msm at ({B // 4}, 8): exact, {times[0]:.4f} ms device, {times[1]:.4f} ms per call "
           f"(plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]})")
-    print(f"[kernel] msm rows: {cuda_curve.MSM_LANES} lanes per row, rows per block "
-          f"{cuda_curve.MSM_ROWS or 'from B'}; the fused decompress kernel {cuda_curve.DECOMPRESS_LANES} lanes")
 
     # pairing: a row of its own per check, built from the slice's honest
     # pairing sides (el, er): rows 0, 2 mod 4 are true pairs ([r]el, [r]er),
@@ -964,8 +951,7 @@ def main() -> int:
             print(f"[kernel] pairing at {n} rows: exact, {times[0]:.4f} ms device, {times[1]:.4f} ms per call "
                   f"(plain {plain_ms:.3f} ms, bound {bound[0]:.5f} ms by {bound[1]})")
     print(f"[kernel] pairing rows: {B} distinct checks, {int(true_row.sum())} true, "
-          f"{int((~true_row).sum())} false; {cuda_pairing.LANES} lanes per row, "
-          f"{cuda_pairing.ROWS_PER_BLOCK or cuda_pairing.rows_per_block(B, dev)} rows per block at {B} rows")
+          f"{int((~true_row).sum())} false")
 
     # hinted decompression at (B, 10): the proof's points with their hints;
     # in three of every four rows one point replaced by a crafted encoding
@@ -1087,8 +1073,7 @@ def main() -> int:
         else:
             print(f"[kernel] subgroup at 2 rounds: exact, {times[0]:.3f} ms device (plain {plain_ms:.3f} ms, "
                   f"bound {bound[0]:.4f} ms by {bound[1]})")
-    print(f"[kernel] subgroup rows: {int(sub_member.sum())} in G1, {int((~sub_member).sum())} not; "
-          f"{cuda_curve.SUBGROUP_LANES} lanes per row, rows per block {cuda_curve.SUBGROUP_ROWS or 'from B'}")
+    print(f"[kernel] subgroup rows: {int(sub_member.sum())} in G1, {int((~sub_member).sum())} not")
 
     # tensor-core probe kernels on tools/mxu_probe.py's inputs (default_rng(0),
     # integers in [0, 127)): bit for bit at the probe's width B and at ragged
@@ -1137,13 +1122,13 @@ def main() -> int:
     # one warp alone (16 columns): a step's latency, without the card's
     # other warps; the 200 dependent steps can take no less than 200 of them
     mat16, vec16 = probe_inputs(16)
-    for name, kern, kernel, warps in (("int8_chain", cuda_mma.int8_chain, "int8_chain_kernel", 1),
-                                      ("bf16_chain", cuda_mma.bf16_chain, "bf16_chain_kernel", cuda_mma.CHAIN_WARPS)):
+    for name, kern, kernel in (("int8_chain", cuda_mma.int8_chain, "int8_chain_kernel"),
+                               ("bf16_chain", cuda_mma.bf16_chain, "bf16_chain_kernel")):
         one = [_times(lambda: kern(mat16, vec16, n), kernel, 20)[0] for n in (0, steps)]
         step_us = (one[1] - one[0]) * 1e3 / steps
         print(f"[kernel] {name} step latency on one warp: {step_us:.4f} us ({one[1]:.4f} ms at {steps} steps, "
               f"{one[0]:.4f} at 0); dependent-step floor {steps * step_us / 1e3:.4f} ms at B = {B} "
-              f"(device {results[name]['ms']:.4f}); {warps} warps a block")
+              f"(device {results[name]['ms']:.4f})")
 
     stamp("kernel phase")
     report_refusals("field and kernel phases")

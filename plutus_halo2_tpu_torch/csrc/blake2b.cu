@@ -18,7 +18,8 @@
 // the operations bound.
 //
 // Design (the Pallas kernel's three phases, on lane groups):
-//  - A compression runs on L lanes (L = 4 or 1). The 4 x 4 state is held by
+//  - A compression runs on L = B2_LANES = 4 lanes (the functions below
+//    also take L = 1, a thread a compression). The 4 x 4 state is held by
 //    columns, as the Pallas kernel's quarters: lane l holds column l, the
 //    words v[l], v[4+l], v[8+l], v[12+l] (L = 4), or one thread all four
 //    (L = 1). A half-round is one G a column (_G4, pallas_blake.py:69); the
@@ -381,24 +382,27 @@ transcript_kernel(const uint8_t* buf, int B, int T, const int* lens, int S, int 
   }
 }
 
-// Launch shape: `rows` rows a block (0: the fewest that put every row in
-// one wave of blocks, one block a SM), as many groups a row as fit up to
-// one a squeeze, at most B2_MAX_THREADS threads. The rows' bytes are
-// staged where they fit, with fewer rows a block if need be, else read from
-// global memory. Returns the threads a block (rows, groups, staged and the
-// shared bytes set), or 0 where not even one unstaged row fits.
-static inline int transcript_shape(int B, int S, int max_fb, int lanes, int& rows, int& groups, bool& staged,
-                                   size_t& smem) {
+// lanes a compression: 1 (a thread a compression) was 1.7x slower on an
+// H100 at the verifier's shapes
+constexpr int B2_LANES = 4;
+
+// Launch shape: the fewest rows a block that put every row in one wave of
+// blocks (one block a SM), as many groups a row as fit up to one a squeeze,
+// at most B2_MAX_THREADS threads. The rows' bytes are staged where they
+// fit, with fewer rows a block if need be, else read from global memory.
+// Returns the threads a block (rows, groups, staged and the shared bytes
+// set), or 0 where not even one unstaged row fits.
+static inline int transcript_shape(int B, int S, int max_fb, int& rows, int& groups, bool& staged, size_t& smem) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (rows <= 0) rows = std::max(1, std::min((B + sms - 1) / std::max(sms, 1), B2_MAX_THREADS / (S * lanes)));
+  const int most = std::max(1, std::min((B + sms - 1) / std::max(sms, 1), B2_MAX_THREADS / (S * B2_LANES)));
   for (int st = 1; st >= 0; st--)
-    for (int r = rows; r >= 1; r--) {
-      const int g = std::max(1, std::min(S, B2_MAX_THREADS / (r * lanes)));
-      const int threads = (r * g * lanes + 31) / 32 * 32;
-      const size_t bytes = sizeof(uint64_t) * B2Layout{max_fb + 1, r, S, st == 1}.words(threads, lanes);
+    for (int r = most; r >= 1; r--) {
+      const int g = std::max(1, std::min(S, B2_MAX_THREADS / (r * B2_LANES)));
+      const int threads = (r * g * B2_LANES + 31) / 32 * 32;
+      const size_t bytes = sizeof(uint64_t) * B2Layout{max_fb + 1, r, S, st == 1}.words(threads, B2_LANES);
       if (threads <= B2_MAX_THREADS && bytes <= (size_t)smem_max) {
         rows = r;
         groups = g;
@@ -410,28 +414,19 @@ static inline int transcript_shape(int B, int S, int max_fb, int lanes, int& row
   return 0;
 }
 
-template <int L>
-static int launch_transcript(const uint8_t* buf, int B, int T, const int* lens, int S, int max_fb, int64_t* h1,
-                             int64_t* h2, int rows, cudaStream_t st) {
-  int groups = 0;
+extern "C" int ph2_transcript(const uint8_t* buf, int B, int T, const int* lens, int S, int max_fb, int64_t* h1,
+                              int64_t* h2, void* stream) {
+  if (B <= 0) return (int)cudaGetLastError();
+  if (S < 1 || max_fb < 0) return (int)cudaErrorInvalidValue;
+  int rows = 0, groups = 0;
   bool staged = true;
   size_t smem = 0;
-  const int threads = transcript_shape(B, S, max_fb, L, rows, groups, staged, smem);
+  const int threads = transcript_shape(B, S, max_fb, rows, groups, staged, smem);
   if (threads == 0) return (int)cudaErrorInvalidValue;
-  const auto kernel = staged ? transcript_kernel<L, true> : transcript_kernel<L, false>;
+  const auto kernel = staged ? transcript_kernel<B2_LANES, true> : transcript_kernel<B2_LANES, false>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(B + rows - 1) / rows, threads, smem, st>>>(buf, B, T, lens, S, max_fb, rows, groups, h1, h2);
+  kernel<<<(B + rows - 1) / rows, threads, smem, (cudaStream_t)stream>>>(buf, B, T, lens, S, max_fb, rows, groups,
+                                                                         h1, h2);
   return (int)cudaGetLastError();
-}
-
-// lanes: 1 or 4 a compression; rows: 0 for the default above
-extern "C" int ph2_transcript(const uint8_t* buf, int B, int T, const int* lens, int S, int max_fb, int64_t* h1,
-                              int64_t* h2, int lanes, int rows, void* stream) {
-  if (B <= 0) return (int)cudaGetLastError();
-  if (S < 1 || max_fb < 0 || rows < 0) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (lanes == 4) return launch_transcript<4>(buf, B, T, lens, S, max_fb, h1, h2, rows, st);
-  if (lanes == 1) return launch_transcript<1>(buf, B, T, lens, S, max_fb, h1, h2, rows, st);
-  return (int)cudaErrorInvalidValue;
 }

@@ -24,11 +24,12 @@
 // access coalesces); each thread then reads
 // its own row there (a row's 64-bit words fall on distinct banks across a
 // half-warp: a stride of 50 or 34 words) and writes its product back over
-// it. `threads` a block (cuda_field.MONT_MUL_THREADS, swept by
-// block_sweep), two slabs of shared memory a block.
+// it. MONT_MUL_THREADS rows a block, two slabs of shared memory a block.
 #include "lanes.cuh"
 
 constexpr int MONT_MUL_MAX_THREADS = 512;
+// threads (rows) a block: the fastest of 32 to 512 on an H100 at 2^16 pairs
+constexpr int MONT_MUL_THREADS = 128;
 
 // int64 words a block's slab of `threads` rows of L words holds: the rows
 // and a head word, rounded up to 16 bytes
@@ -102,26 +103,23 @@ mont_mul_kernel(const int64_t* a, const int64_t* b, int64_t* out, int n) {
   stage_out(out + w0, sa, nw);
 }
 
-// threads a block: a multiple of 32 up to MONT_MUL_MAX_THREADS
 template <class F>
-static int launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n, int threads, void* stream) {
-  if (threads < 32 || threads > MONT_MUL_MAX_THREADS || threads % 32) return (int)cudaErrorInvalidValue;
+static int launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int n, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  const int smem = 2 * slab_words(threads, F::L16) * (int)sizeof(int64_t);
+  const int smem = 2 * slab_words(MONT_MUL_THREADS, F::L16) * (int)sizeof(int64_t);
   cudaError_t e = cudaFuncSetAttribute(mont_mul_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  mont_mul_kernel<F><<<(n + threads - 1) / threads, threads, smem, (cudaStream_t)stream>>>(a, b, out, n);
+  mont_mul_kernel<F><<<(n + MONT_MUL_THREADS - 1) / MONT_MUL_THREADS, MONT_MUL_THREADS, smem, (cudaStream_t)stream>>>(
+      a, b, out, n);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ph2_mont_mul_fp(const int64_t* a, const int64_t* b, int64_t* out, int n, int threads,
-                               void* stream) {
-  return launch_mont_mul<FpT>(a, b, out, n, threads, stream);
+extern "C" int ph2_mont_mul_fp(const int64_t* a, const int64_t* b, int64_t* out, int n, void* stream) {
+  return launch_mont_mul<FpT>(a, b, out, n, stream);
 }
 
-extern "C" int ph2_mont_mul_fr(const int64_t* a, const int64_t* b, int64_t* out, int n, int threads,
-                               void* stream) {
-  return launch_mont_mul<FrT>(a, b, out, n, threads, stream);
+extern "C" int ph2_mont_mul_fr(const int64_t* a, const int64_t* b, int64_t* out, int n, void* stream) {
+  return launch_mont_mul<FrT>(a, b, out, n, stream);
 }
 
 // ---- latency probe of the Fp primitives -------------------------------------

@@ -47,6 +47,7 @@
 
 constexpr int GW = FrT::NW + 1;       // words of a wide value: 288 bits
 constexpr int GLUE_MAX_THREADS = 256;
+constexpr int GLUE_THREADS = 128;  // threads a block
 
 // an operand: its first limb, and its strides over the output's leading
 // dims 0-2 and the reduced dim (s[3])
@@ -229,11 +230,10 @@ __global__ void __launch_bounds__(GLUE_MAX_THREADS) fr_glue_dot(GlueGeom g, int6
 
 // op: 0 mul, 1 add, 2 sub, 3 sum, 4 dot (cuda_fr.OPS). geom (host memory,
 // 12 values): n, d1, d2, k, then a's and b's strides (dims 0-2, reduced).
-// threads: a multiple of 32 up to GLUE_MAX_THREADS. No launch for n = 0.
+// GLUE_THREADS threads a block. No launch for n = 0.
 extern "C" int ph2_fr_glue(int op, const int64_t* a, const int64_t* b, int64_t* out, const int64_t* geom,
-                           int threads, void* stream) {
-  if (threads < 32 || threads > GLUE_MAX_THREADS || threads % 32 || op < 0 || op > 4)
-    return (int)cudaErrorInvalidValue;
+                           void* stream) {
+  if (op < 0 || op > 4) return (int)cudaErrorInvalidValue;
   for (int j = 0; j < 4; j++)
     if (geom[j] < (j == 0 || j == 3 ? 0 : 1) || geom[j] >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   if (geom[0] == 0) return 0;
@@ -248,14 +248,14 @@ extern "C" int ph2_fr_glue(int op, const int64_t* a, const int64_t* b, int64_t* 
     g.a.s[j] = geom[4 + j];
     g.b.s[j] = geom[8 + j];
   }
-  const unsigned blocks = (g.n + threads - 1) / threads;
+  const unsigned blocks = (g.n + GLUE_THREADS - 1) / GLUE_THREADS;
   cudaStream_t st = (cudaStream_t)stream;
   switch (op) {
-    case 0: fr_glue_mul<<<blocks, threads, 0, st>>>(g, out); break;
-    case 1: fr_glue_add<<<blocks, threads, 0, st>>>(g, out); break;
-    case 2: fr_glue_sub<<<blocks, threads, 0, st>>>(g, out); break;
-    case 3: fr_glue_sum<<<blocks, threads, 0, st>>>(g, out); break;
-    default: fr_glue_dot<<<blocks, threads, 0, st>>>(g, out); break;
+    case 0: fr_glue_mul<<<blocks, GLUE_THREADS, 0, st>>>(g, out); break;
+    case 1: fr_glue_add<<<blocks, GLUE_THREADS, 0, st>>>(g, out); break;
+    case 2: fr_glue_sub<<<blocks, GLUE_THREADS, 0, st>>>(g, out); break;
+    case 3: fr_glue_sum<<<blocks, GLUE_THREADS, 0, st>>>(g, out); break;
+    default: fr_glue_dot<<<blocks, GLUE_THREADS, 0, st>>>(g, out); break;
   }
   return (int)cudaGetLastError();
 }

@@ -57,21 +57,18 @@ DEV Group make_group(int G) {
   return Group{lane, G, mask};
 }
 
-// Rows per block of a lane-group kernel with `row_bytes` of shared memory a
-// row: `rows` if given (> 0), else the fewest that put every row in one
+// Rows per block of a lane-group kernel of `lanes` lanes a row with
+// `row_bytes` of shared memory a row: the fewest that put every row in one
 // wave of blocks, one block per SM; at most 256 threads and what a block's
-// shared memory holds. 0 when that many rows do not fit.
-static inline int group_rows(int B, int lanes, int rows, size_t row_bytes) {
+// shared memory holds. 0 when not one row fits.
+static inline int group_rows(int B, int lanes, size_t row_bytes) {
   int dev = 0, sms = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   const int fit = std::min((int)(smem_max / row_bytes), 256 / lanes);
-  if (rows <= 0) rows = std::max(1, std::min((B + sms - 1) / sms, fit));
-  return rows <= fit ? rows : 0;
+  return fit < 1 ? 0 : std::max(1, std::min((B + sms - 1) / sms, fit));
 }
-
-static inline bool valid_lanes(int lanes) { return lanes == 4 || lanes == 8 || lanes == 16 || lanes == 32; }
 
 DEV void s_load(uint32_t* r, const uint32_t* p) {
   const uint4* q = reinterpret_cast<const uint4*>(p);
@@ -662,15 +659,15 @@ DEV void aggregate_rows(Load load, const int* weights, uint8_t* ok_out, long lon
 }
 
 // Launches `kernel`, a kernel over aggregate_rows, on B rows of K points
-// and `rounds` rounds: `lanes` (4, 8, 16 or 32) a row, `rows` a block (0:
-// one wave of blocks; group_rows). cudaErrorInvalidValue where the
-// arguments are out of range or not one row fits a block.
+// and `rounds` rounds: `lanes` a row, rows a block from group_rows.
+// cudaErrorInvalidValue where the arguments are out of range or not one
+// row fits a block.
 template <class Kernel, class... Args>
-static inline int launch_aggregate_rows(Kernel* kernel, int B, int K, int rounds, int lanes, int rows,
-                                        cudaStream_t st, Args... args) {
-  if (rounds < 1 || rounds > 4 || !valid_lanes(lanes)) return (int)cudaErrorInvalidValue;
+static inline int launch_aggregate_rows(Kernel* kernel, int B, int K, int rounds, int lanes, cudaStream_t st,
+                                        Args... args) {
+  if (rounds < 1 || rounds > 4) return (int)cudaErrorInvalidValue;
   const size_t row_bytes = sizeof(uint32_t) * AggLayout(K, rounds).words;
-  rows = group_rows(B, lanes, rows, row_bytes);
+  const int rows = group_rows(B, lanes, row_bytes);
   if (rows == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = rows * row_bytes;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

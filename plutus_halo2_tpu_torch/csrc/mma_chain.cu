@@ -58,6 +58,7 @@ constexpr int CHAIN_K = 48;     // the accumulator's rows, mat's columns
 constexpr int CHAIN_KS = 3;     // k-slices of 16
 constexpr int CHAIN_NT = 6;     // n-tiles of 8 (rows 0-47 of the product)
 constexpr int CHAIN_MAX_WARPS = 8;
+constexpr int CHAIN_WARPS = 1;  // the bf16 chain's warps a block (see int8_chain_kernel)
 
 // d += a . b, one m16n8k16 bf16 product with f32 sums over the warp
 #ifdef PH2_CPU_SIM
@@ -177,14 +178,14 @@ bf16_chain_kernel(const int8_t* mat, const int8_t* vec, int32_t* out, int B, int
   }
 }
 
-// warps: 1 to CHAIN_MAX_WARPS a block, 16 batch columns each
-extern "C" int ph2_mma_bf16_chain(const int8_t* mat, const int8_t* vec, int32_t* out, int B, int steps, int warps,
+// CHAIN_WARPS warps a block, 16 batch columns each
+extern "C" int ph2_mma_bf16_chain(const int8_t* mat, const int8_t* vec, int32_t* out, int B, int steps,
                                   void* stream) {
-  if (warps < 1 || warps > CHAIN_MAX_WARPS || steps < 0) return (int)cudaErrorInvalidValue;
+  if (steps < 0) return (int)cudaErrorInvalidValue;
   const int col_warps = (B + 15) / 16;
   if (B > 0)
-    bf16_chain_kernel<<<(col_warps + warps - 1) / warps, warps * 32, 0, (cudaStream_t)stream>>>(mat, vec, out, B,
-                                                                                                steps);
+    bf16_chain_kernel<<<(col_warps + CHAIN_WARPS - 1) / CHAIN_WARPS, CHAIN_WARPS * 32, 0, (cudaStream_t)stream>>>(
+        mat, vec, out, B, steps);
   return (int)cudaGetLastError();
 }
 

@@ -24,9 +24,9 @@
 // ~1,000 rows there is not enough independent work to hide a product's
 // latency, so the time is a row's critical path.
 //
-// Design: a group of `lanes` lanes per row (group.cuh; 32 on the main
-// path), rows per block chosen to fill the SMs once. The group builds its
-// chunk's tables in log2(2^(WBITS-1)) levels of independent additions,
+// Design: a group of MSM_LANES lanes per row (group.cuh), rows per block
+// chosen to fill the SMs once. The group builds its chunk's tables in
+// log2(2^(WBITS-1)) levels of independent additions,
 // adds each point's terms to all window sums at once (one item per window,
 // two products a lane), then runs the chain's doublings and additions with
 // one product a lane: 612 product stages at 5-bit windows, where one
@@ -114,27 +114,29 @@ __global__ void __launch_bounds__(256, 1) msm_kernel(const int64_t* pts, const i
   for (int co = g.lane; co < 3; co += g.G) store_port<FpT>(out + ((size_t)row * 3 + co) * 25, acc + SLOT * co);
 }
 
+// lanes a row: the fastest width on an H100 at (1024, 16) and at (256, 8),
+// where the 52 window sums keep 32 lanes busy (4 to 32 swept, kernel alone)
+constexpr int MSM_LANES = 32;
+
 template <int WBITS>
 static int launch(const int64_t* pts, const int64_t* sc, int64_t* out, long long* phases, int B, int K,
-                  int lanes, int rows, cudaStream_t stream) {
+                  cudaStream_t stream) {
   const size_t row_bytes = sizeof(uint32_t) * MsmLayout<WBITS>::WORDS;
-  rows = group_rows(B, lanes, rows, row_bytes);
+  const int rows = group_rows(B, MSM_LANES, row_bytes);
   if (rows == 0) return (int)cudaErrorInvalidValue;
   const size_t smem = rows * row_bytes;
   cudaError_t e = cudaFuncSetAttribute(msm_kernel<WBITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  msm_kernel<WBITS><<<(B + rows - 1) / rows, rows * lanes, smem, stream>>>(pts, sc, out, phases, B, K, lanes);
+  msm_kernel<WBITS><<<(B + rows - 1) / rows, rows * MSM_LANES, smem, stream>>>(pts, sc, out, phases, B, K,
+                                                                               MSM_LANES);
   return (int)cudaGetLastError();
 }
 
-// lanes: 4, 8, 16 or 32 per row; rows: per block, 0 for one wave of blocks
-// (group_rows); phases: nullptr, or (B, 3) cycle marks
+// rows a block from group_rows; phases: nullptr, or (B, 3) cycle marks
 extern "C" int ph2_msm(const int64_t* pts, const int64_t* sc, int64_t* out, long long* phases, int B, int K,
-                       int wbits, int lanes, int rows, void* stream) {
-  if ((wbits != 4 && wbits != 5) || !valid_lanes(lanes))
-    return (int)cudaErrorInvalidValue;
+                       int wbits, void* stream) {
+  if (wbits != 4 && wbits != 5) return (int)cudaErrorInvalidValue;
   if (B <= 0 || K <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return wbits == 4 ? launch<4>(pts, sc, out, phases, B, K, lanes, rows, s)
-                    : launch<5>(pts, sc, out, phases, B, K, lanes, rows, s);
+  return wbits == 4 ? launch<4>(pts, sc, out, phases, B, K, s) : launch<5>(pts, sc, out, phases, B, K, s);
 }

@@ -28,7 +28,7 @@
 // a row takes ~8.4e6 (linear 2.8e6, product stages 4.2e6, ~3.3e6 of that
 // f_mul2, inversions 0.6e6), so the products now lead.
 //
-// Design: a group of G lanes (32 by default, or 16) per row. Every tower
+// Design: a group of G = PAIR_LANES lanes per row. Every tower
 // formula is a stack of independent Fp products, so the host traces each
 // step of the schedule (ops/tower.py's k12_* functions, run on a symbolic
 // field) into a program: stages of products, of linear combinations (the
@@ -43,7 +43,7 @@
 // once), a few percent of a Fermat ladder's products. A block copies the
 // ladders, the int32 program table and each row's constants into shared
 // memory once, all in flight together (cp.async). Rows per block fill the
-// SMs once at the batch's size (cuda_pairing.rows_per_block). The 63-step
+// SMs once at the batch's size (the launcher's pair_rows). The 63-step
 // loops stay rolled, so nvcc builds this file in seconds.
 //
 // The operand path. Every term of the table is resolved on the host to one
@@ -66,6 +66,8 @@
 // rows, and holding a product stage's four combinations at once ran out of
 // registers; a product pass builds its two items' operands one item after
 // the other.
+#include <algorithm>
+
 #include "field.cuh"
 
 constexpr int SLOT_WORDS = 12;
@@ -552,29 +554,33 @@ __global__ void pairing_kernel(const int64_t* el, const int64_t* er, const uint3
   pairing_row(r, ladder, live, out + b, ph);
 }
 
-template <int G>
-static int launch(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
-                  const uint32_t* consts, int* out, long long* phases, const int* enable, int B, int rows,
-                  int row_slots, int tab_words, cudaStream_t stream) {
-  const size_t bytes =
-      sizeof(uint32_t) * (LADDER_WORDS + ((tab_words + 3) & ~3) + (size_t)rows * row_slots * SLOT_WORDS);
-  cudaError_t e = cudaFuncSetAttribute(pairing_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  pairing_kernel<G><<<(B + rows - 1) / rows, rows * G, bytes, stream>>>(el, er, lines, tab, consts, out, phases, enable,
-                                                                          B, row_slots, tab_words);
-  return (int)cudaGetLastError();
+// The launch geometry, chosen by kernel-alone sweeps over 16 and 32 lanes a
+// row and 1 to 8 rows a block on an H100: 32 lanes, at most 8 rows a block
+// (which the 227 KB of a block's shared memory holds)
+constexpr int PAIR_LANES = 32;
+constexpr int PAIR_MAX_ROWS = 8;
+
+// The fewest rows a block that put every row in one wave of blocks, one
+// block an SM, at most PAIR_MAX_ROWS: one at the RLC group check's 128
+// rows, 8 at 1024 rows on 132 SMs.
+static inline int pair_rows(int B) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return std::min(PAIR_MAX_ROWS, std::max(1, (B + sms - 1) / std::max(sms, 1)));
 }
 
 extern "C" int ph2_pairing_check(const int64_t* el, const int64_t* er, const uint32_t* lines, const int* tab,
                                  const uint32_t* consts, int* out, long long* phases, const int* enable, int B,
-                                 int lanes, int rows, int row_slots, int tab_words, void* stream) {
+                                 int row_slots, int tab_words, void* stream) {
   if (B <= 0) return 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (lanes) {
-    case 16:
-      return launch<16>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, tab_words, s);
-    case 32:
-      return launch<32>(el, er, lines, tab, consts, out, phases, enable, B, rows, row_slots, tab_words, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int rows = pair_rows(B);
+  const size_t bytes =
+      sizeof(uint32_t) * (LADDER_WORDS + ((tab_words + 3) & ~3) + (size_t)rows * row_slots * SLOT_WORDS);
+  cudaError_t e =
+      cudaFuncSetAttribute(pairing_kernel<PAIR_LANES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  pairing_kernel<PAIR_LANES><<<(B + rows - 1) / rows, rows * PAIR_LANES, bytes, (cudaStream_t)stream>>>(
+      el, er, lines, tab, consts, out, phases, enable, B, row_slots, tab_words);
+  return (int)cudaGetLastError();
 }

@@ -16,10 +16,10 @@
 // Design: each element's ladder is a chain of dependent products, so one
 // thread an element waits a whole product per step and leaves most of the
 // card idle at the verifier's widths (1,024 Fr elements). Here an element
-// belongs to a group of T lanes (lanes.cuh: T lanes share each product,
-// S = NW / T words a lane, the multiplier's words gathered by shuffles),
-// `rows` elements a block, whole warps. The 16-entry power table is in
-// shared memory, each lane reading and writing its own S words of an
+// belongs to a group of T = POW_LANES lanes (lanes.cuh: T lanes share each
+// product, S = NW / T words a lane, the multiplier's words gathered by
+// shuffles), POW_ROWS elements a block: one warp. The 16-entry power table
+// is in shared memory, each lane reading and writing its own S words of an
 // entry; the digit is the same for every element, so a warp's reads fall
 // on one entry and spread over the banks. The digit schedule is a device
 // array read by broadcast; a zero digit's product by the table's 1 is
@@ -100,35 +100,28 @@ __global__ void __launch_bounds__(256) pow_kernel(const int64_t* x, int64_t* out
     for (int k = 2 * NW; k < F::L16; k++) dst[k] = 0;
 }
 
-// `lanes` (T) per element, `rows` (1 to 256 / T) elements per block,
-// rounded up to whole warps
-template <class F, int T>
-static int launch_pow_t(const int64_t* x, int64_t* out, int n, const int* digits, int nd, int rows,
-                        cudaStream_t st) {
-  if (rows < 1 || rows > 256 / T) return (int)cudaErrorInvalidValue;
-  rows = (rows + 32 / T - 1) / (32 / T) * (32 / T);
-  const size_t smem = sizeof(uint32_t) * rows * tab_words<F>();
-  cudaError_t e = cudaFuncSetAttribute(pow_kernel<F, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The launch geometry, for both fields: the fastest on an H100 at the
+// verifier's shapes in kernel-alone sweeps over 2, 4 and (Fr) 8 lanes and
+// 4 to 32 elements a block
+constexpr int POW_LANES = 4;
+constexpr int POW_ROWS = 8;
+
+template <class F>
+static int launch_pow(const int64_t* x, int64_t* out, int n, const int* digits, int nd, void* stream) {
+  if (n <= 0) return 0;
+  const size_t smem = sizeof(uint32_t) * POW_ROWS * tab_words<F>();
+  cudaError_t e =
+      cudaFuncSetAttribute(pow_kernel<F, POW_LANES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pow_kernel<F, T><<<(n + rows - 1) / rows, rows * T, smem, st>>>(x, out, n, digits, nd);
+  pow_kernel<F, POW_LANES><<<(n + POW_ROWS - 1) / POW_ROWS, POW_ROWS * POW_LANES, smem, (cudaStream_t)stream>>>(
+      x, out, n, digits, nd);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ph2_pow_fp(const int64_t* x, int64_t* out, int n, const int* digits, int nd, int lanes,
-                          int rows, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (lanes == 2) return launch_pow_t<FpT, 2>(x, out, n, digits, nd, rows, st);
-  if (lanes == 4) return launch_pow_t<FpT, 4>(x, out, n, digits, nd, rows, st);
-  return (int)cudaErrorInvalidValue;
+extern "C" int ph2_pow_fp(const int64_t* x, int64_t* out, int n, const int* digits, int nd, void* stream) {
+  return launch_pow<FpT>(x, out, n, digits, nd, stream);
 }
 
-extern "C" int ph2_pow_fr(const int64_t* x, int64_t* out, int n, const int* digits, int nd, int lanes,
-                          int rows, void* stream) {
-  if (n <= 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (lanes == 2) return launch_pow_t<FrT, 2>(x, out, n, digits, nd, rows, st);
-  if (lanes == 4) return launch_pow_t<FrT, 4>(x, out, n, digits, nd, rows, st);
-  if (lanes == 8) return launch_pow_t<FrT, 8>(x, out, n, digits, nd, rows, st);
-  return (int)cudaErrorInvalidValue;
+extern "C" int ph2_pow_fr(const int64_t* x, int64_t* out, int n, const int* digits, int nd, void* stream) {
+  return launch_pow<FrT>(x, out, n, digits, nd, stream);
 }

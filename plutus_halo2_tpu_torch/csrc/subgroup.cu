@@ -14,8 +14,8 @@
 // algorithm), and two 64-bit z-ladders of 63 doublings and 5 additions.
 //
 // Design: the fused decompress kernel's (decompress.cu) without the
-// decoding. Each row belongs to a group of `lanes` lanes (group.cuh; rows
-// per block chosen to fill the SMs once): one lane a point loads its point
+// decoding. Each row belongs to a group of SUBGROUP_LANES lanes (group.cuh;
+// rows per block chosen to fill the SMs once): one lane a point loads its point
 // into the row's tables in shared memory, then the group runs the test as
 // stages of Fp products spread over its lanes, the rounds' ladders sharing
 // stages. Any B >= 1, 1 <= K <= 128, rounds 1 to 4.
@@ -27,11 +27,14 @@ __global__ void __launch_bounds__(256, 1) subgroup_kernel(const int64_t* pts, co
                  lanes);
 }
 
-// `lanes` (4, 8, 16 or 32) per row, `rows` per block (0: one wave of
-// blocks; group_rows), phases nullptr or (B, 4) cycle marks.
+// lanes a row: two rows a warp ran the ladder stages of 4-6 products faster
+// than 32 lanes at 1024 rows on an H100 (4 to 32 swept, kernel alone)
+constexpr int SUBGROUP_LANES = 16;
+
+// rows a block from group_rows; phases nullptr or (B, 4) cycle marks.
 extern "C" int ph2_subgroup(const int64_t* pts, const int* weights, uint8_t* ok, long long* phases, int B, int K,
-                            int rounds, int lanes, int rows, void* stream) {
+                            int rounds, void* stream) {
   if (B <= 0 || K <= 0) return 0;
-  return launch_aggregate_rows(subgroup_kernel, B, K, rounds, lanes, rows, (cudaStream_t)stream, pts, weights, ok,
-                               phases, B, K, rounds, lanes);
+  return launch_aggregate_rows(subgroup_kernel, B, K, rounds, SUBGROUP_LANES, (cudaStream_t)stream, pts, weights,
+                               ok, phases, B, K, rounds, SUBGROUP_LANES);
 }

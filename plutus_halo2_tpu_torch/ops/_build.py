@@ -38,20 +38,20 @@ _L = ctypes.c_int64
 # C entry points: (argtypes); every one returns a CUDA error code as int (the
 # kernels' launchers cudaGetLastError())
 SIGNATURES = {
-    "ph2_mont_mul_fp": (_P, _P, _P, _I, _I, _P),
-    "ph2_mont_mul_fr": (_P, _P, _P, _I, _I, _P),
+    "ph2_mont_mul_fp": (_P, _P, _P, _I, _P),
+    "ph2_mont_mul_fr": (_P, _P, _P, _I, _P),
     "ph2_fp_step_probe": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ph2_lanes_step_probe": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ph2_pow_fp": (_P, _P, _I, _P, _I, _I, _I, _P),
-    "ph2_pow_fr": (_P, _P, _I, _P, _I, _I, _I, _P),
-    "ph2_transcript": (_P, _I, _I, _P, _I, _I, _P, _P, _I, _I, _P),
-    "ph2_msm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "ph2_decompress": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "ph2_subgroup": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ph2_pow_fp": (_P, _P, _I, _P, _I, _P),
+    "ph2_pow_fr": (_P, _P, _I, _P, _I, _P),
+    "ph2_transcript": (_P, _I, _I, _P, _I, _I, _P, _P, _P),
+    "ph2_msm": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ph2_decompress": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "ph2_subgroup": (_P, _P, _P, _P, _I, _I, _I, _P),
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
     "ph2_mma_int8_chain": (_P, _P, _P, _I, _I, _P),
-    "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _I, _P),
+    "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _P),
     "ph2_fr_ntt": (_P, _P, _L, _I, _P, _I, _I, _P, _P, _P, _P),
     "ph2_fr_mul_array": (_P, _P, _P, _L, _P),
     "ph2_fr_scale_array": (_P, _P, _P, _L, _P),
@@ -59,7 +59,7 @@ SIGNATURES = {
     "ph2_graph_census": (_P, _P, _P, _P, _I, _P),
     "ph2_graph_set_events": (_P, _P, _P, _I),
     "ph2_event_record": (_P, _P),
-    "ph2_fr_glue": (_I, _P, _P, _P, _P, _I, _P),
+    "ph2_fr_glue": (_I, _P, _P, _P, _P, _P),
 }
 
 
@@ -234,6 +234,16 @@ def kernel_resources(name: str) -> list[dict]:
     return out
 
 
+def launch_constant(source: str, name: str) -> int:
+    """A launch-geometry constant of a kernel's launcher, where it is set:
+    ``constexpr int <name> = <value>;`` in csrc/<source> (for reports and
+    tests; the launchers take no geometry argument)."""
+    m = re.search(rf"^constexpr int {name} = (\d+);", (CSRC / source).read_text(), re.M)
+    if m is None:
+        raise KeyError(f"{source} sets no constexpr int {name}")
+    return int(m.group(1))
+
+
 def check(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
@@ -243,18 +253,6 @@ def stream_ptr():
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-# Threads per block of the one-thread-per-item kernel (the unfused
-# decompress), read at each launch: within 6 % of the fastest size at the
-# verifier's shapes on an H100 (PERF.md; python3 -m
-# plutus_halo2_tpu_torch.block_sweep). The lane-group kernels take their
-# own lanes per row and rows per block (cuda_curve.MSM_LANES,
-# DECOMPRESS_LANES, SUBGROUP_LANES, ...; cuda_field.POW_FP_LANES,
-# POW_FR_LANES, POW_ROWS; cuda_pairing.LANES, ROWS_PER_BLOCK;
-# cuda_blake.TRANSCRIPT_LANES, TRANSCRIPT_ROWS;
-# cuda_mma.CHAIN_WARPS).
-BLOCK_THREADS = 64
 
 
 def ptr(t) -> ctypes.c_void_p:

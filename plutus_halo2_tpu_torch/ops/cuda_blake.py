@@ -7,12 +7,12 @@ buffer (h1) and of each 32-byte h1 (h2), as (B, S, 8) LE64 (lo, hi) words
 held in int64. The plain version is the JAX package's XLA path ported:
 ``blake2b_256_prefixes`` followed by ``blake2b_256``.
 
-The kernel runs a compression on ``TRANSCRIPT_LANES`` lanes (4, or 1), a
-row's squeezes side by side on groups of them (one a squeeze, fewer where a
-block's threads run out: then the squeezes take rounds), and
-``TRANSCRIPT_ROWS`` rows a block (0: the fewest that put every row in one
-wave of blocks; fewer where the rows' bytes would not fit in shared
-memory). Both are read at each launch."""
+The kernel runs a compression on a group of lanes (``B2_LANES`` in
+``csrc/blake2b.cu``, fixed by its launcher), a row's squeezes side by side
+on groups (one a squeeze, fewer where a block's threads run out: then the
+squeezes take rounds), and the fewest rows a block that put every row in
+one wave of blocks (fewer where the rows' bytes would not fit in shared
+memory)."""
 
 from __future__ import annotations
 
@@ -20,9 +20,6 @@ import torch
 
 from . import _build
 from .blake2b import blake2b_256_prefixes_words, blake2b_256_words, words_to_bytes
-
-TRANSCRIPT_LANES = 4
-TRANSCRIPT_ROWS = 0
 
 # the squeeze lengths on the card, then the squeezes in the order of their
 # final blocks (the kernel's chain keeps their states in that order), per
@@ -60,8 +57,7 @@ def transcript_hashes(buf, lengths):
     h2 = torch.empty_like(h1)
     lib = _build.library()
     _build.check(lib.ph2_transcript(_build.ptr(buf), B, T, _build.ptr(_lens_on(lengths, buf.device)), S, max_fb,
-                                    _build.ptr(h1), _build.ptr(h2), TRANSCRIPT_LANES, TRANSCRIPT_ROWS,
-                                    _build.stream_ptr()),
+                                    _build.ptr(h1), _build.ptr(h2), _build.stream_ptr()),
                  "ph2_transcript")
     transcript_hashes.launches += 1
     return h1, h2

@@ -32,15 +32,11 @@ and the verdict depends on the summation order: compare sub_ok on rows
 whose points are all valid, and valid & sub_ok everywhere.
 
 The MSM, the fused decompress kernel and the subgroup kernel give each
-row a group of lanes (``MSM_LANES``, ``DECOMPRESS_LANES``,
-``SUBGROUP_LANES``: 4, 8, 16 or 32) and put ``MSM_ROWS`` /
-``DECOMPRESS_ROWS`` / ``SUBGROUP_ROWS`` rows in a block (0: the fewest
-that fill the SMs once; ``csrc/group.cuh`` group_rows); all six are read
-at each launch, and ``python3 -m plutus_halo2_tpu_torch.block_sweep``
-sweeps them. The widths are the fastest on an H100 at the main path's
-shapes: the MSM's 52 window sums keep 32 lanes busy, at (1024, 16) and at
-(256, 8); the aggregate test's rows are mostly ladder stages of 4-6
-products, which run faster two rows to a warp at 1024 rows (PERF.md)."""
+row a group of lanes and put the fewest rows in a block that fill the SMs
+once (``csrc/group.cuh`` group_rows); each launcher fixes its kernel's
+lanes (``MSM_LANES`` in ``csrc/msm.cu``, ``DECOMPRESS_LANES`` in
+``csrc/decompress.cu``, ``SUBGROUP_LANES`` in ``csrc/subgroup.cu``), and
+the unfused decompress kernel's threads a block (``DECOMPRESS_THREADS``)."""
 
 from __future__ import annotations
 
@@ -50,12 +46,6 @@ from . import _build, curve
 from .limb import FP_SPEC, FR_SPEC
 
 MAX_K = 128  # points per row the row-layout kernels take
-MSM_LANES = 32
-MSM_ROWS = 0
-DECOMPRESS_LANES = 16
-DECOMPRESS_ROWS = 0
-SUBGROUP_LANES = 16
-SUBGROUP_ROWS = 0
 
 
 def msm_plain(points, scalars):
@@ -87,7 +77,7 @@ def msm(points, scalars, wbits: int = 5, phases=None):
     out = torch.empty((B, 3, FP_SPEC.L), dtype=torch.int64, device=points.device)
     lib = _build.library()
     _build.check(lib.ph2_msm(_build.ptr(points), _build.ptr(scalars), _build.ptr(out), _build.ptr_or_none(phases),
-                             B, K, wbits, MSM_LANES, MSM_ROWS, _build.stream_ptr()), "ph2_msm")
+                             B, K, wbits, _build.stream_ptr()), "ph2_msm")
     msm.launches += 1
     return out
 
@@ -138,7 +128,7 @@ def decompress_hinted(pt_raw, y_hints, weights=None, phases=None):
         _build.ptr(pt_raw), _build.ptr(y_hints), _build.ptr_or_none(w),
         _build.ptr(pts), _build.ptr(valid), _build.ptr_or_none(sub_ok),
         _build.ptr_or_none(phases if w is not None else None), B, K, 0 if w is None else w.shape[0],
-        _build.BLOCK_THREADS, DECOMPRESS_LANES, DECOMPRESS_ROWS, _build.stream_ptr()), "ph2_decompress")
+        _build.stream_ptr()), "ph2_decompress")
     decompress_hinted.launches += 1
     return (pts, valid) if w is None else (pts, valid, sub_ok)
 
@@ -166,7 +156,7 @@ def aggregate_subgroup_check(points, weights, phases=None):
     ok = torch.empty((B,), dtype=torch.bool, device=points.device)
     lib = _build.library()
     _build.check(lib.ph2_subgroup(_build.ptr(points), _build.ptr(w), _build.ptr(ok), _build.ptr_or_none(phases),
-                                  B, K, w.shape[0], SUBGROUP_LANES, SUBGROUP_ROWS, _build.stream_ptr()),
+                                  B, K, w.shape[0], _build.stream_ptr()),
                  "ph2_subgroup")
     aggregate_subgroup_check.launches += 1
     return ok

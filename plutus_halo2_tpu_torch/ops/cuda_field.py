@@ -8,19 +8,13 @@ the root of the pooled batch inversion (exponent q - 2, width 1) and as the
 Fp square-root ladder of hintless decompression (exponent (p + 1) / 4,
 one element per proof point).
 
-The pow kernel gives each element a group of lanes that share each
-product of its ladder (``csrc/lanes.cuh``: CIOS with the multiplier's
-words broadcast by shuffles and the carries resolved once a product by a
-carry-lookahead over the group): ``POW_FP_LANES`` (2 or 4) for Fp,
-``POW_FR_LANES`` (2, 4 or 8) for Fr, ``POW_ROWS`` elements a block (1 to
-256 / lanes). All three are read at each launch, and ``python3 -m
-plutus_halo2_tpu_torch.block_sweep --only pow_fp,pow_fr`` sweeps them. The
-settings are the fastest on an H100 at the verifier's shapes: 4 lanes for
-both fields, 8 elements a block (PERF.md).
-
-The Montgomery-product test kernel runs ``MONT_MUL_THREADS`` elements a
-block (a multiple of 32 up to 512), read at each launch; ``block_sweep
---only mont_mul`` sweeps it.
+The pow kernel gives each element a group of lanes that share each product
+of its ladder (``csrc/lanes.cuh``: CIOS with the multiplier's words
+broadcast by shuffles and the carries resolved once a product by a
+carry-lookahead over the group); its launcher fixes the lanes and the
+elements a block for both fields (``POW_LANES``, ``POW_ROWS`` in
+``csrc/pow.cu``), as the test kernel's fixes its threads a block
+(``MONT_MUL_THREADS``, ``csrc/field_test.cu``).
 
 Each wrapper takes the port's int64 16-bit-limb Montgomery tensors. A CPU
 tensor goes to the plain version; a CUDA tensor goes to the kernel, or the
@@ -32,11 +26,6 @@ import torch
 
 from . import _build
 from .limb import FP_SPEC, FR_SPEC, FieldSpec, mont_mul, mont_pow_static, window_digits
-
-POW_FP_LANES = 4
-POW_FR_LANES = 4
-POW_ROWS = 8
-MONT_MUL_THREADS = 128
 
 
 def pow_plain(x, spec: FieldSpec, exponent: int):
@@ -60,14 +49,14 @@ def _digits(exponent: int, device) -> torch.Tensor:
     return d
 
 
-def _pow(fn: str, spec: FieldSpec, x, exponent: int, lanes: int):
+def _pow(fn: str, spec: FieldSpec, x, exponent: int):
     _build.require(x, "x", torch.int64, (*x.shape[:-1], spec.L))
     out = torch.empty_like(x)
     d = _digits(exponent, x.device)
     n = x.numel() // spec.L
     lib = _build.library()
     _build.check(getattr(lib, fn)(_build.ptr(x), _build.ptr(out), n, _build.ptr(d), d.numel(),
-                                  lanes, POW_ROWS, _build.stream_ptr()), fn)
+                                  _build.stream_ptr()), fn)
     return out
 
 
@@ -75,7 +64,7 @@ def fr_pow(x, exponent: int):
     """x^exponent over Fr for (..., 17) Montgomery limbs."""
     if x.device.type == "cpu":
         return pow_plain(x, FR_SPEC, exponent)
-    out = _pow("ph2_pow_fr", FR_SPEC, x, exponent, POW_FR_LANES)
+    out = _pow("ph2_pow_fr", FR_SPEC, x, exponent)
     fr_pow.launches += 1
     return out
 
@@ -87,7 +76,7 @@ def fp_pow(x, exponent: int):
     """x^exponent over Fp for (..., 25) Montgomery limbs."""
     if x.device.type == "cpu":
         return pow_plain(x, FP_SPEC, exponent)
-    out = _pow("ph2_pow_fp", FP_SPEC, x, exponent, POW_FP_LANES)
+    out = _pow("ph2_pow_fp", FP_SPEC, x, exponent)
     fp_pow.launches += 1
     return out
 
@@ -101,7 +90,7 @@ def _mont_mul(fn: str, spec: FieldSpec, a, b):
     out = torch.empty_like(a)
     lib = _build.library()
     _build.check(getattr(lib, fn)(_build.ptr(a), _build.ptr(b), _build.ptr(out),
-                                  a.numel() // spec.L, MONT_MUL_THREADS, _build.stream_ptr()), fn)
+                                  a.numel() // spec.L, _build.stream_ptr()), fn)
     return out
 
 

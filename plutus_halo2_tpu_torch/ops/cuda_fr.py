@@ -20,7 +20,8 @@ Counters, plain integers as every kernel wrapper keeps: each op's
 program's on each replay), ``layout_copies``, and ``plain_on_cuda``: the
 Fr ops that reached a plain function of ``ops/limb.py`` with a CUDA tensor
 (``limb.mont_mul``, ``add`` and ``sub`` count them), which the verifier's
-bodies keep at 0. ``THREADS``: threads a block, read at each launch."""
+bodies keep at 0. The launcher fixes the threads a block (``GLUE_THREADS``
+in ``csrc/fr_glue.cu``)."""
 
 from __future__ import annotations
 
@@ -31,7 +32,6 @@ import torch
 from . import _build
 
 L = 17
-THREADS = 128
 OPS = ("mul", "add", "sub", "sum_lazy", "dot_lazy")  # ph2_fr_glue's op codes, in order
 layout_copies = 0
 plain_on_cuda = 0
@@ -130,7 +130,7 @@ def _launch(fn, a, b, dim=None):
     if out.numel():
         g = (ctypes.c_int64 * len(geom))(*geom)
         _build.check(_build.library().ph2_fr_glue(OPS.index(fn.__name__), _build.ptr(a), _build.ptr(b),
-                                                  _build.ptr(out), g, THREADS, _build.stream_ptr()),
+                                                  _build.ptr(out), g, _build.stream_ptr()),
                      f"ph2_fr_glue {fn.__name__}")
         fn.launches += 1
     return out

@@ -15,8 +15,8 @@ probe's:
       mma.sync registers for the whole chain, in a lane permutation of
       the accumulator's columns; one warp a block);
   ``bf16_chain(mat, vec, steps=200)`` -> the same chain through bf16
-      operands with f32 sums (held in registers likewise,
-      ``CHAIN_WARPS`` warps a block).
+      operands with f32 sums (held in registers likewise, one warp a
+      block: ``CHAIN_WARPS`` in ``csrc/mma_chain.cu``).
 
 Every value is an integer in [0, 127] and a 48-term sum stays below 2^20,
 so both chains compute one integer function exactly: one plain version,
@@ -34,7 +34,6 @@ from . import _build
 M, K = 96, 48  # out rows (2 L8) x in sublimbs (L8)
 MASK = 0x7F
 STEPS = 200
-CHAIN_WARPS = 1  # warps a block of the bf16 chain (1-8), read at each launch
 
 
 def int8_dot_plain(mat, vec):
@@ -97,7 +96,7 @@ def bf16_chain(mat, vec, steps: int = STEPS):
     _check_steps(steps)
     if vec.device.type == "cpu":
         return chain_plain(mat, vec, steps)
-    out = _launch("ph2_mma_bf16_chain", mat, vec, K, steps, CHAIN_WARPS)
+    out = _launch("ph2_mma_bf16_chain", mat, vec, K, steps)
     bf16_chain.launches += 1
     return out
 

@@ -7,10 +7,10 @@ prepared on the host (``ops/pairing.prepare_g2``). The plain version is
 ``ops/pairing.pairing_check_projective`` (the JAX package's
 ``jpair.pairing_check`` behind the verifier's affine conversion).
 
-The kernel runs the programs of ``ops/pairing_program.py`` with a group of
-``LANES`` lanes per row and ``ROWS_PER_BLOCK`` rows in a block (both read
-at each launch; ``python3 -m plutus_halo2_tpu_torch.block_sweep`` sweeps
-them)."""
+The kernel runs the programs of ``ops/pairing_program.py`` on a group of
+lanes a row, with the fewest rows a block that put every row in one wave
+of blocks; its launcher fixes both (``PAIR_LANES``, ``PAIR_MAX_ROWS`` and
+``pair_rows`` in ``csrc/pairing.cu``)."""
 
 from __future__ import annotations
 
@@ -22,9 +22,6 @@ from .limb import FP_SPEC
 from .pairing import pairing_check_projective
 
 _KINDS = ("dbl_lam", "dbl_c", "add_lam", "add_c")
-LANES = 32  # lanes per row: 16 or 32
-ROWS_PER_BLOCK = None  # None: enough rows per block to fill the SMs once, at most MAX_ROWS_PER_BLOCK
-MAX_ROWS_PER_BLOCK = 8
 _TABLES: dict = {}
 
 
@@ -69,14 +66,6 @@ class PreparedPair:
         return t
 
 
-def rows_per_block(B: int, device) -> int:
-    """The fewest rows per block that put every row in one wave of blocks,
-    one block per SM (at most MAX_ROWS_PER_BLOCK): one row per block at
-    the RLC group check's 128 rows, 8 at 1024 rows on 132 SMs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return min(MAX_ROWS_PER_BLOCK, max(1, -(-B // sms)))
-
-
 def pairing_check_plain(el, er, pp: PreparedPair, enable=None):
     ok = pairing_check_projective(el, er, pp.prep1, pp.prep2)
     return ok if enable is None else torch.where(enable.reshape(()).bool(), ok, True)
@@ -99,7 +88,6 @@ def pairing_check(el, er, pp: PreparedPair, phases=None, enable=None):
     if lines.shape[1] != 63 + pairing_program.N_ADD:
         raise ValueError("pairing kernel expects 63-step ladders")
     tab, consts, row_slots, tab_words = _tables_on(el.device)
-    rows = ROWS_PER_BLOCK or rows_per_block(B, el.device)
     out = torch.empty((B,), dtype=torch.int32, device=el.device)
     if phases is not None:
         _build.require(phases, "phases", torch.int64, (B, 10))
@@ -109,8 +97,8 @@ def pairing_check(el, er, pp: PreparedPair, phases=None, enable=None):
     lib = _build.library()
     _build.check(lib.ph2_pairing_check(_build.ptr(el), _build.ptr(er), _build.ptr(lines), _build.ptr(tab),
                                        _build.ptr(consts), _build.ptr(out),
-                                       _build.ptr_or_none(phases), _build.ptr_or_none(enable), B, LANES, rows,
-                                       row_slots, tab_words, _build.stream_ptr()),
+                                       _build.ptr_or_none(phases), _build.ptr_or_none(enable), B, row_slots,
+                                       tab_words, _build.stream_ptr()),
                  "ph2_pairing_check")
     pairing_check.launches += 1
     return out != 0

@@ -20,7 +20,8 @@ Prints one JSON line per measurement:
 3. ``msm``: at (B, 16) and at the RLC aggregation's (B / 4, 8), both window
    widths, the kernel's phases in SM cycles from its ``clock64()`` marks
    (median row: the tables and window sums, the chain) and the chain's
-   cycles per product stage (2 per doubling and per addition);
+   cycles per product stage (2 per doubling and per addition), beside the
+   lanes a row its launcher fixes;
 4. ``decompress``: at (B, 10), 1 and 2 rounds: decoding, the window part
    (tables, window sums, chain) and the z-ladders with the comparison;
 5. ``subgroup``: at (B, 10), 1 and 2 rounds: the loads, the window part
@@ -133,7 +134,8 @@ def msm_phases(dev, B: int, rng) -> None:
             window, chain = _median_row(ph)
             nwin = tc.MSM_NWIN[wbits]
             stages = 2 * (nwin - 1) * (wbits + 1)
-            print(json.dumps({"probe": "msm", "rows": rows, "K": K, "wbits": wbits, "lanes": cuda_curve.MSM_LANES,
+            print(json.dumps({"probe": "msm", "rows": rows, "K": K, "wbits": wbits,
+                              "lanes": _build.launch_constant("msm.cu", "MSM_LANES"),
                               "cycles": {"tables_and_window_sums": window, "chain": chain},
                               "chain_stages": stages, "cycles_per_chain_stage": chain / stages}))
 
@@ -154,7 +156,7 @@ def decompress_phases(dev, B: int, rng) -> None:
         # the window chain: 5 windows of 3 doublings and an addition; the
         # ladders: 2 x (63 doublings, 5 additions), an addition, 2 compare stages
         print(json.dumps({"probe": "decompress", "rows": B, "K": 10, "rounds": rounds,
-                          "lanes": cuda_curve.DECOMPRESS_LANES,
+                          "lanes": _build.launch_constant("decompress.cu", "DECOMPRESS_LANES"),
                           "cycles": {"decode": decode, "tables_window_sums_chain": window,
                                      "ladders_and_compare": ladders},
                           "cycles_per_ladder_stage": ladders / (2 * (2 * 68 + 1) + 2)}))
@@ -172,7 +174,7 @@ def subgroup_phases(dev, B: int, rng) -> None:
             raise SystemExit(f"curve_probe: subgroup at {rounds} rounds differs from its plain version")
         load, window, ladders = _median_row(ph)
         print(json.dumps({"probe": "subgroup", "rows": B, "K": 10, "rounds": rounds,
-                          "lanes": cuda_curve.SUBGROUP_LANES,
+                          "lanes": _build.launch_constant("subgroup.cu", "SUBGROUP_LANES"),
                           "cycles": {"load": load, "tables_window_sums_chain": window,
                                      "ladders_and_compare": ladders},
                           "cycles_per_ladder_stage": ladders / (2 * (2 * 68 + 1) + 2)}))

@@ -5,7 +5,7 @@
 exports a Chrome trace (open it in Perfetto or ``chrome://tracing``);
 ``device_busy_share`` reads the one number such a trace must yield: the
 share of the traced window in which the card ran anything. ``device_ms``
-is the kernel timer of chip_smoke.py, block_sweep.py and the probes: the
+is the kernel timer of chip_smoke.py and the probes: the
 device time of a call's own kernels, read from a profiler window."""
 
 from __future__ import annotations

@@ -20,11 +20,11 @@ with ops/curve.aggregate_subgroup_check_windowed on rows whose points all
 decode and valid & sub_ok everywhere; the subgroup kernel's verdicts with
 aggregate_subgroup_check_windowed and the rows' construction; the pow
 kernel limb for limb with ops/cuda_field.pow_plain for both fields at
-every lane-group width; at several lane-group widths, ragged point counts
-and 1 to 4 rounds; the transcript kernel word for word with
-cuda_blake.transcript_hashes_plain at 1 and 4 lanes a compression, ragged
-rows, one squeeze, more squeezes than a row has groups, the rows' bytes
-staged in shared memory and read from global memory; both chains with
+ragged element counts; each kernel at the lanes its launcher fixes,
+ragged point counts and 1 to 4 rounds; the transcript kernel word for
+word with cuda_blake.transcript_hashes_plain, ragged rows, one squeeze,
+more squeezes than a row has groups, the rows' bytes staged in shared
+memory and read from global memory; both chains with
 cuda_mma.chain_plain at ragged batch widths and 0, 1 and 7 steps; the
 Montgomery-product kernel with cuda_field.mont_mul_plain for both fields
 at ragged counts, one and several blocks, the slabs 0 or 8 bytes past a
@@ -33,8 +33,8 @@ at ragged counts, one and several blocks, the slabs 0 or 8 bytes past a
 threads at the launch's own geometry: bit reversal, powers tables,
 twiddles, one launch a stage) word for word with ops/poly.py's plain
 versions at sizes from 1 to 2^12 and ragged lengths; the pairing kernel's
-verdicts on true, false and identity rows at both lane-group widths, rows
-ragged against the rows per block, and its stage count against
+verdicts on true, false and identity rows, rows ragged against the rows
+per block, and its stage count against
 pairing_program's critical path (its carry chain in plain C); the Fr glue through
 its entry point on ops/cuda_fr.layout's geometry limb for limb with
 ops/limb.py's mont_mul, add, sub, sum_lazy and dot_lazy (broadcast and
@@ -275,10 +275,10 @@ template <class F> void run_blocks(int B, int lanes, int rows, F body) {
 }
 
 int main(int argc, char** argv) {
-  if (argv[1][0] == 't') {  // B rows of T bytes, S squeezes; lanes, rows a block, groups a row, staged
-    const int B = atoi(argv[2]), T = atoi(argv[3]), S = atoi(argv[4]), lanes = atoi(argv[5]),
-              rows = atoi(argv[6]), groups = atoi(argv[7]), off = atoi(argv[8]);
-    const bool staged = atoi(argv[9]) != 0;
+  if (argv[1][0] == 't') {  // B rows of T bytes, S squeezes; rows a block, groups a row, staged
+    const int B = atoi(argv[2]), T = atoi(argv[3]), S = atoi(argv[4]), rows = atoi(argv[5]), groups = atoi(argv[6]),
+              off = atoi(argv[7]);
+    const bool staged = atoi(argv[8]) != 0;
     auto raw = readf<uint8_t>("buf.bin", (size_t)B * T);
     alignas(16) static uint8_t store[1 << 16];  // the rows from `off` bytes past a 16-byte boundary
     memcpy(store + off, raw.data(), raw.size());
@@ -287,22 +287,21 @@ int main(int argc, char** argv) {
     int max_fb = 0;
     for (int s = 0; s < S; s++) max_fb = std::max(max_fb, (lens[s] - 1) / 128);
     std::vector<int64_t> h1((size_t)B * S * 8, -1), h2((size_t)B * S * 8, -1);
-    const int threads = (rows * groups * lanes + 31) / 32 * 32;
-    run_grid((B + rows - 1) / rows, threads, lanes, [&] {
-      auto kernel = lanes == 4 ? (staged ? transcript_kernel<4, true> : transcript_kernel<4, false>)
-                               : (staged ? transcript_kernel<1, true> : transcript_kernel<1, false>);
+    const int threads = (rows * groups * B2_LANES + 31) / 32 * 32;
+    run_grid((B + rows - 1) / rows, threads, B2_LANES, [&] {
+      auto kernel = staged ? transcript_kernel<B2_LANES, true> : transcript_kernel<B2_LANES, false>;
       kernel(buf, B, T, lens.data(), S, max_fb, rows, groups, h1.data(), h2.data());
     });
     writef("h1.bin", h1);
     writef("h2.bin", h2);
     return 0;
   }
-  if (argv[1][0] == 'c') {  // B columns, steps, warps a block
-    const int B = atoi(argv[2]), steps = atoi(argv[3]), warps = atoi(argv[4]);
+  if (argv[1][0] == 'c') {  // B columns, steps
+    const int B = atoi(argv[2]), steps = atoi(argv[3]);
     auto mat = readf<int8_t>("mat.bin", 96 * 48);
     auto vec = readf<int8_t>("vec.bin", (size_t)48 * B);
     std::vector<int32_t> out((size_t)48 * B, -1);
-    run_grid(((B + 15) / 16 + warps - 1) / warps, warps * 32, 32,
+    run_grid(((B + 15) / 16 + CHAIN_WARPS - 1) / CHAIN_WARPS, CHAIN_WARPS * 32, 32,
              [&] { bf16_chain_kernel(mat.data(), vec.data(), out.data(), B, steps); });
     writef("out.bin", out);
     return 0;
@@ -332,10 +331,10 @@ int main(int argc, char** argv) {
     writef("acc.bin", acc);
     return 0;
   }
-  if (argv[1][0] == 'f') {  // n elements, 0 Fp or 1 Fr, threads a block; a's, b's and out's first words
+  if (argv[1][0] == 'f') {  // n elements, 0 Fp or 1 Fr; a's, b's and out's first words
     // 0 or 1 words past a 16-byte boundary
-    const int n = atoi(argv[2]), fr = atoi(argv[3]), threads = atoi(argv[4]);
-    const int off[3] = {atoi(argv[5]), atoi(argv[6]), atoi(argv[7])};
+    const int n = atoi(argv[2]), fr = atoi(argv[3]), threads = MONT_MUL_THREADS;
+    const int off[3] = {atoi(argv[4]), atoi(argv[5]), atoi(argv[6])};
     const size_t words = (size_t)n * (fr ? FrT::L16 : FpT::L16);
     std::vector<int64_t> slab[3];
     for (int i = 0; i < 3; i++) slab[i].assign(words + 4, -7);  // a sentinel around the rows
@@ -357,31 +356,30 @@ int main(int argc, char** argv) {
     writef("out.bin", out);
     return 0;
   }
-  if (argv[1][0] == 'g') {  // the Fr glue: op, threads; a's and b's words and first-limb offsets
-    const int op = atoi(argv[2]), threads = atoi(argv[3]);
-    const size_t na = atol(argv[4]), oa = atol(argv[5]), nb = atol(argv[6]), ob = atol(argv[7]);
+  if (argv[1][0] == 'g') {  // the Fr glue: op; a's and b's words and first-limb offsets
+    const int op = atoi(argv[2]);
+    const size_t na = atol(argv[3]), oa = atol(argv[4]), nb = atol(argv[5]), ob = atol(argv[6]);
     auto a = readf<int64_t>("a.bin", na), b = readf<int64_t>("b.bin", nb);
     auto geom = readf<int64_t>("geom.bin", 12);
     std::vector<int64_t> out((size_t)geom[0] * FrT::L16 + 1, -7);  // a sentinel past the rows
-    if (ph2_fr_glue(op, a.data() + oa, b.data() + ob, out.data(), geom.data(), threads, nullptr)) return 5;
+    if (ph2_fr_glue(op, a.data() + oa, b.data() + ob, out.data(), geom.data(), nullptr)) return 5;
     if (out.back() != -7) return 4;
     out.pop_back();
     writef("out.bin", out);
     return 0;
   }
-  if (argv[1][0] == 'q') {  // the pairing kernel: B rows, lanes, rows a block, row slots, table and ladder words
-    const int B = atoi(argv[2]), lanes = atoi(argv[3]), rows = atoi(argv[4]), row_slots = atoi(argv[5]),
-              tab_words = atoi(argv[6]), line_words = atoi(argv[7]);
+  if (argv[1][0] == 'q') {  // the pairing kernel: B rows, rows a block, row slots, table and ladder words
+    const int B = atoi(argv[2]), rows = atoi(argv[3]), row_slots = atoi(argv[4]), tab_words = atoi(argv[5]),
+              line_words = atoi(argv[6]);
     auto el = readf<int64_t>("el.bin", (size_t)B * 75), er = readf<int64_t>("er.bin", (size_t)B * 75);
     auto lines = readf<uint32_t>("lines.bin", line_words);
     auto tab = readf<int>("tab.bin", tab_words);
     auto consts = readf<uint32_t>("consts.bin", (size_t)12 * PAIR_N_CONST);
     std::vector<int> out(B, -1);
     std::vector<long long> ph((size_t)B * 10, 0);
-    run_blocks(B, lanes, rows, [&] {
-      auto kernel = lanes == 16 ? pairing_kernel<16> : pairing_kernel<32>;
-      kernel(el.data(), er.data(), lines.data(), tab.data(), consts.data(), out.data(), ph.data(), nullptr, B,
-             row_slots, tab_words);
+    run_blocks(B, PAIR_LANES, rows, [&] {
+      pairing_kernel<PAIR_LANES>(el.data(), er.data(), lines.data(), tab.data(), consts.data(), out.data(), ph.data(),
+                                 nullptr, B, row_slots, tab_words);
     });
     writef("out.bin", out);
     writef("ph.bin", ph);
@@ -423,33 +421,31 @@ int main(int argc, char** argv) {
     writef("out.bin", out);
     return 0;
   }
-  const int B = atoi(argv[2]), K = atoi(argv[3]), X = atoi(argv[4]), lanes = atoi(argv[5]), rows = 2;
+  const int B = atoi(argv[2]), K = atoi(argv[3]), X = atoi(argv[4]), rows = 2;
   if (argv[1][0] == 'm') {  // X: the window width
     auto pts = readf<int64_t>("pts.bin", (size_t)B * K * 75);
     auto sc = readf<int64_t>("sc.bin", (size_t)B * K * 17);
     std::vector<int64_t> out((size_t)B * 75);
-    run_blocks(B, lanes, rows, [&] {
-      if (X == 4) msm_kernel<4>(pts.data(), sc.data(), out.data(), nullptr, B, K, lanes);
-      else msm_kernel<5>(pts.data(), sc.data(), out.data(), nullptr, B, K, lanes);
+    run_blocks(B, MSM_LANES, rows, [&] {
+      if (X == 4) msm_kernel<4>(pts.data(), sc.data(), out.data(), nullptr, B, K, MSM_LANES);
+      else msm_kernel<5>(pts.data(), sc.data(), out.data(), nullptr, B, K, MSM_LANES);
     });
     writef("out.bin", out);
   } else if (argv[1][0] == 's') {  // X: the rounds
     auto pts = readf<int64_t>("pts.bin", (size_t)B * K * 75);
     auto w = readf<int>("w.bin", (size_t)X * K);
     std::vector<uint8_t> ok(B);
-    run_blocks(B, lanes, rows, [&] { subgroup_kernel(pts.data(), w.data(), ok.data(), nullptr, B, K, X, lanes); });
+    run_blocks(B, SUBGROUP_LANES, rows,
+               [&] { subgroup_kernel(pts.data(), w.data(), ok.data(), nullptr, B, K, X, SUBGROUP_LANES); });
     writef("ok.bin", ok);
   } else if (argv[1][0] == 'p') {  // B elements, K: 0 Fp, 1 Fr; X: the digits
     const int L = K == 0 ? FpT::L16 : FrT::L16;
     auto x = readf<int64_t>("x.bin", (size_t)B * L);
     auto dig = readf<int>("digits.bin", (size_t)X);
     std::vector<int64_t> out((size_t)B * L, -1);
-    run_blocks(B, lanes, rows, [&] {
-      if (K == 0 && lanes == 2) pow_kernel<FpT, 2>(x.data(), out.data(), B, dig.data(), X);
-      if (K == 0 && lanes == 4) pow_kernel<FpT, 4>(x.data(), out.data(), B, dig.data(), X);
-      if (K == 1 && lanes == 2) pow_kernel<FrT, 2>(x.data(), out.data(), B, dig.data(), X);
-      if (K == 1 && lanes == 4) pow_kernel<FrT, 4>(x.data(), out.data(), B, dig.data(), X);
-      if (K == 1 && lanes == 8) pow_kernel<FrT, 8>(x.data(), out.data(), B, dig.data(), X);
+    run_blocks(B, POW_LANES, POW_ROWS, [&] {
+      if (K == 0) pow_kernel<FpT, POW_LANES>(x.data(), out.data(), B, dig.data(), X);
+      else pow_kernel<FrT, POW_LANES>(x.data(), out.data(), B, dig.data(), X);
     });
     writef("out.bin", out);
   } else {  // X: the rounds
@@ -458,9 +454,9 @@ int main(int argc, char** argv) {
     auto w = readf<int>("w.bin", (size_t)X * K);
     std::vector<int64_t> pts((size_t)B * K * 75);
     std::vector<uint8_t> valid((size_t)B * K), ok(B);
-    run_blocks(B, lanes, rows, [&] {
+    run_blocks(B, DECOMPRESS_LANES, rows, [&] {
       decompress_subgroup_kernel(raw.data(), hints.data(), w.data(), pts.data(), valid.data(), ok.data(), nullptr,
-                                 B, K, X, lanes);
+                                 B, K, X, DECOMPRESS_LANES);
     });
     writef("pts.bin", pts);
     writef("valid.bin", valid);
@@ -504,9 +500,8 @@ def _run(work, *args):
     assert out.returncode == 0, out.stderr[-2000:]
 
 
-@pytest.mark.parametrize("B,K,wbits,lanes", [(3, 6, 5, 16), (2, 9, 4, 8), (3, 5, 5, 32), (1, 1, 4, 4),
-                                             (1, 36, 5, 32)])
-def test_msm_kernel_on_cpu_threads(sim, B, K, wbits, lanes):
+@pytest.mark.parametrize("B,K,wbits", [(3, 6, 5), (2, 9, 4), (3, 5, 5), (1, 1, 4), (1, 36, 5)])
+def test_msm_kernel_on_cpu_threads(sim, B, K, wbits):
     rng = np.random.default_rng(B * K + wbits)
     host = [rc.g1_mul(rc.G1_GEN, int(s)) for s in rng.integers(1, 2**62, size=min(K, 5))] + [None]
     pts = np.stack([tc.host_point_to_mont(p) for p in host])[rng.integers(0, len(host), size=(B, K))]
@@ -516,7 +511,7 @@ def test_msm_kernel_on_cpu_threads(sim, B, K, wbits, lanes):
     sc[-1, -1] = FR_SPEC.encode(FR_SPEC.N - 1)
     pts.astype(np.int64).tofile(sim / "pts.bin")
     sc.astype(np.int64).tofile(sim / "sc.bin")
-    _run(sim, "m", B, K, wbits, lanes)
+    _run(sim, "m", B, K, wbits)
     got = np.fromfile(sim / "out.bin", np.int64).reshape(B, 3, FP_SPEC.L)
     want = tc.msm_windowed(torch.from_numpy(pts), torch.from_numpy(sc), wbits).numpy()
     assert np.array_equal(got, want)
@@ -551,14 +546,14 @@ def _encodings(B, K, seed):
     return raw, hints
 
 
-@pytest.mark.parametrize("B,K,rounds,lanes", [(6, 10, 1, 16), (4, 7, 4, 32), (3, 5, 2, 4), (5, 3, 3, 8)])
-def test_decompress_kernel_on_cpu_threads(sim, B, K, rounds, lanes):
+@pytest.mark.parametrize("B,K,rounds", [(6, 10, 1), (4, 7, 4), (3, 5, 2), (5, 3, 3)])
+def test_decompress_kernel_on_cpu_threads(sim, B, K, rounds):
     raw, hints = _encodings(B, K, B + K + rounds)
     w = tc.subgroup_weights(K, rounds, torch.Generator().manual_seed(K)).to(torch.int32).numpy()
     raw.tofile(sim / "raw.bin")
     hints.tofile(sim / "hints.bin")
     w.tofile(sim / "w.bin")
-    _run(sim, "d", B, K, rounds, lanes)
+    _run(sim, "d", B, K, rounds)
     pts = np.fromfile(sim / "pts.bin", np.int64).reshape(B, K, 3, FP_SPEC.L)
     valid = np.fromfile(sim / "valid.bin", np.uint8).reshape(B, K).astype(bool)
     ok = np.fromfile(sim / "ok.bin", np.uint8).astype(bool)
@@ -583,9 +578,9 @@ def _evil_point():
         x += 1
 
 
-@pytest.mark.parametrize("B,K,rounds,lanes", [(4, 1, 1, 4), (5, 3, 2, 8), (4, 10, 1, 16), (3, 33, 4, 32),
-                                              (4, 10, 3, 32), (3, 33, 2, 4), (5, 1, 4, 16), (4, 3, 3, 8)])
-def test_subgroup_kernel_on_cpu_threads(sim, B, K, rounds, lanes):
+@pytest.mark.parametrize("B,K,rounds", [(4, 1, 1), (5, 3, 2), (4, 10, 1), (3, 33, 4), (4, 10, 3), (3, 33, 2),
+                                        (5, 1, 4), (4, 3, 3)])
+def test_subgroup_kernel_on_cpu_threads(sim, B, K, rounds):
     """Rows of honest G1 points with identities among them, and rows with
     the point outside G1, each point as another projective representative
     (sX : sY : sZ): the verdicts against the plain version of the kernel's
@@ -604,28 +599,29 @@ def test_subgroup_kernel_on_cpu_threads(sim, B, K, rounds, lanes):
     w = tc.subgroup_weights(K, rounds, torch.Generator().manual_seed(K + rounds)).to(torch.int32)
     pts.numpy().astype(np.int64).tofile(sim / "pts.bin")
     w.numpy().tofile(sim / "w.bin")
-    _run(sim, "s", B, K, rounds, lanes)
+    _run(sim, "s", B, K, rounds)
     ok = np.fromfile(sim / "ok.bin", np.uint8).astype(bool)
     want = tc.aggregate_subgroup_check_windowed(pts, w.to(torch.int64)).numpy()
     assert np.array_equal(ok, want)
     assert ok.tolist() == kinds
 
 
-@pytest.mark.parametrize("field,lanes", [("fp", 2), ("fp", 4), ("fr", 2), ("fr", 4), ("fr", 8)])
-def test_pow_kernel_on_cpu_threads(sim, field, lanes):
-    """The verifier's two exponents (Fp (p + 1) / 4, Fr q - 2) on a ragged
-    count of elements: 0, 1 and N - 1 (canonical, in the Montgomery domain)
+@pytest.mark.parametrize("field,n", [("fp", 7), ("fp", 17), ("fr", 5), ("fr", 13), ("fr", 26)])
+def test_pow_kernel_on_cpu_threads(sim, field, n):
+    """The verifier's two exponents (Fp (p + 1) / 4, Fr q - 2) on n
+    elements, ragged against the launcher's elements a block, in one and
+    in several blocks: 0, 1 and N - 1 (canonical, in the Montgomery domain)
     and the elements whose limbs are 1 and N - 1, then random values; limb
     for limb against the plain version."""
     spec, e = (FP_SPEC, (FP_SPEC.N + 1) >> 2) if field == "fp" else (FR_SPEC, FR_SPEC.N - 2)
-    rng = np.random.default_rng(lanes)
+    rng = np.random.default_rng(n)
     special = [spec.to_mont(v) for v in (0, 1, spec.N - 1)] + [spec.encode(v) for v in (1, spec.N - 1)]
-    rand = [spec.to_mont(int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N) for _ in range(2)]
-    x = np.stack(special + rand).astype(np.int64)
+    rand = [spec.to_mont(int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N) for _ in range(n)]
+    x = np.stack((special + rand)[:n]).astype(np.int64)
     digits = np.array(window_digits(e), np.int32)
     x.tofile(sim / "x.bin")
     digits.tofile(sim / "digits.bin")
-    _run(sim, "p", len(x), 0 if field == "fp" else 1, len(digits), lanes)
+    _run(sim, "p", len(x), 0 if field == "fp" else 1, len(digits))
     got = np.fromfile(sim / "out.bin", np.int64).reshape(x.shape)
     assert np.array_equal(got, cuda_field.pow_plain(torch.from_numpy(x), spec, e).numpy())
 
@@ -633,40 +629,39 @@ def test_pow_kernel_on_cpu_threads(sim, field, lanes):
 SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)  # models/layout.py
 
 
-@pytest.mark.parametrize("lengths,B,lanes,rows,groups,staged", [
-    (SIMPLE_MUL_LENGTHS, 5, 4, 2, 9, 1),
-    (SIMPLE_MUL_LENGTHS, 1, 1, 1, 9, 1),
-    ((1, 128, 129, 300, 1275), 5, 1, 2, 5, 1),
-    ((1, 128, 129, 300, 1275), 1, 4, 1, 5, 1),
-    ((200,), 5, 4, 2, 1, 1),               # one squeeze
-    (SIMPLE_MUL_LENGTHS, 5, 4, 2, 4, 1),   # more squeezes than groups: 3 rounds
-    ((1, 128, 129, 300, 1275), 5, 1, 3, 2, 1),
+@pytest.mark.parametrize("lengths,B,rows,groups,staged", [
+    (SIMPLE_MUL_LENGTHS, 5, 2, 9, 1),
+    (SIMPLE_MUL_LENGTHS, 1, 1, 9, 1),
+    ((1, 128, 129, 300, 1275), 5, 2, 5, 1),
+    ((1, 128, 129, 300, 1275), 1, 1, 5, 1),
+    ((200,), 5, 2, 1, 1),               # one squeeze
+    (SIMPLE_MUL_LENGTHS, 5, 2, 4, 1),   # more squeezes than groups: 3 rounds
+    ((1, 128, 129, 300, 1275), 5, 3, 2, 1),
     # unstaged: every block read from global memory (rows too long to stage)
-    (SIMPLE_MUL_LENGTHS, 5, 4, 2, 9, 0),
-    ((1275, 1, 300, 129, 128), 4, 1, 3, 2, 0),  # unsorted lengths, rounds
-    ((1, 128, 129, 300, 1275), 1, 4, 1, 5, 0),
+    (SIMPLE_MUL_LENGTHS, 5, 2, 9, 0),
+    ((1275, 1, 300, 129, 128), 4, 3, 2, 0),  # unsorted lengths, rounds
+    ((1, 128, 129, 300, 1275), 1, 1, 5, 0),
 ])
-def test_transcript_kernel_on_cpu_threads(sim, lengths, B, lanes, rows, groups, staged):
+def test_transcript_kernel_on_cpu_threads(sim, lengths, B, rows, groups, staged):
     """Word for word against the plain Blake2b, the rows' bytes staged in
     shared memory or read from global memory; rows of T bytes with T
     below, at and above the staged blocks' length (bytes past a squeeze are
     random, so the final block's masking shows), the buffer 0 to 6 bytes
     past a 16-byte boundary (the staging's unaligned ends)."""
     T = max(lengths) + B % 3 - 1
-    rng = np.random.default_rng(B * 31 + lanes + groups + 100 * staged)
+    rng = np.random.default_rng(B * 31 + rows + groups + 100 * staged)
     buf = rng.integers(0, 256, size=(B, T), dtype=np.uint8)
     buf.tofile(sim / "buf.bin")
     order = sorted(range(len(lengths)), key=lambda s: ((lengths[s] - 1) // 128, s))
     np.array(lengths + tuple(order), np.int32).tofile(sim / "lens.bin")
-    _run(sim, "t", B, T, len(lengths), lanes, rows, groups, (B + groups) % 7, staged)
+    _run(sim, "t", B, T, len(lengths), rows, groups, (B + groups) % 7, staged)
     got = [np.fromfile(sim / f"h{i}.bin", np.int64).reshape(B, len(lengths), 8) for i in (1, 2)]
     want = cuda_blake.transcript_hashes_plain(torch.from_numpy(buf), list(lengths))
     assert np.array_equal(got[0], want[0].numpy()) and np.array_equal(got[1], want[1].numpy())
 
 
-@pytest.mark.parametrize("B,steps,warps", [(1, 0, 1), (1, 7, 1), (17, 1, 1), (17, 7, 2), (40, 0, 2), (40, 7, 2),
-                                           (40, 1, 4)])
-def test_bf16_chain_kernel_on_cpu_threads(sim, B, steps, warps):
+@pytest.mark.parametrize("B,steps", [(1, 0), (1, 7), (17, 1), (17, 7), (40, 0), (40, 7), (40, 1)])
+def test_bf16_chain_kernel_on_cpu_threads(sim, B, steps):
     """The chain in mma.sync registers, bit for bit against the exact plain
     chain, on the JAX probe's kind of inputs with a negative entry in each
     operand; ragged last warps and blocks."""
@@ -676,7 +671,7 @@ def test_bf16_chain_kernel_on_cpu_threads(sim, B, steps, warps):
     mat[5, 7], vec[3, 0] = -100, -128
     mat.tofile(sim / "mat.bin")
     vec.tofile(sim / "vec.bin")
-    _run(sim, "c", B, steps, warps)
+    _run(sim, "c", B, steps)
     got = np.fromfile(sim / "out.bin", np.int32).reshape(48, B)
     want = cuda_mma.chain_plain(torch.from_numpy(mat), torch.from_numpy(vec), steps).numpy()
     assert np.array_equal(got, want)
@@ -701,11 +696,11 @@ def test_int8_chain_kernel_on_cpu_threads(sim, B, steps):
     assert np.array_equal(got, want)
 
 
-@pytest.mark.parametrize("field,n,threads,offsets", [
-    ("fp", 1, 32, (0, 0, 0)), ("fp", 127, 64, (1, 0, 1)), ("fp", 129, 128, (0, 1, 0)), ("fp", 300, 128, (1, 1, 1)),
-    ("fr", 1, 32, (1, 1, 0)), ("fr", 127, 128, (0, 0, 1)), ("fr", 129, 64, (1, 0, 0)), ("fr", 300, 256, (0, 1, 1)),
+@pytest.mark.parametrize("field,n,offsets", [
+    ("fp", 1, (0, 0, 0)), ("fp", 255, (1, 0, 1)), ("fp", 129, (0, 1, 0)), ("fp", 300, (1, 1, 1)),
+    ("fr", 1, (1, 1, 0)), ("fr", 127, (0, 0, 1)), ("fr", 257, (1, 0, 0)), ("fr", 172, (0, 1, 1)),
 ])
-def test_mont_mul_kernel_on_cpu_threads(sim, field, n, threads, offsets):
+def test_mont_mul_kernel_on_cpu_threads(sim, field, n, offsets):
     """The Montgomery-product test kernel (two CIOS products an element,
     rows staged through shared memory with 16-byte accesses) limb for limb
     against the plain product: ragged counts in one and several blocks,
@@ -713,7 +708,7 @@ def test_mont_mul_kernel_on_cpu_threads(sim, field, n, threads, offsets):
     the output's rows; 0, 1 and N - 1 among the inputs, as limbs and in
     the Montgomery domain."""
     spec = FP_SPEC if field == "fp" else FR_SPEC
-    rng = np.random.default_rng(n + threads)
+    rng = np.random.default_rng(n)
     edge = [spec.encode(v) for v in (0, 1, spec.N - 1)] + [spec.to_mont(v) for v in (1, spec.N - 1)]
     rand = [spec.encode(int.from_bytes(rng.bytes(2 * spec.L), "little") % spec.N) for _ in range(n)]
     a = np.stack((edge + rand)[:n]).astype(np.int64)
@@ -722,7 +717,7 @@ def test_mont_mul_kernel_on_cpu_threads(sim, field, n, threads, offsets):
         b[len(edge) : 2 * len(edge)] = edge  # every edge value times every other
     a.tofile(sim / "a.bin")
     b.tofile(sim / "b.bin")
-    _run(sim, "f", n, 0 if field == "fp" else 1, threads, *offsets)
+    _run(sim, "f", n, 0 if field == "fp" else 1, *offsets)
     got = np.fromfile(sim / "out.bin", np.int64).reshape(n, spec.L)
     assert np.array_equal(got, cuda_field.mont_mul_plain(torch.from_numpy(a), torch.from_numpy(b), spec).numpy())
 
@@ -873,7 +868,7 @@ def _glue_case(name, rng):
     if name == "mul_bcast":  # x[:, None, :] against (1, K, L) constants, one block
         return "mul", _fr_mont(_fr_rand(rng, 3))[:, None, :], _fr_mont(_fr_rand(rng, 5))[None], None
     if name == "mul_bcast_blocks":  # three leading dims that do not coalesce; ragged, several blocks
-        a = _fr_mont(_fr_rand(rng, 9)).reshape(3, 1, 3, L)
+        a = _fr_mont(_fr_rand(rng, 45)).reshape(5, 1, 9, L)
         return "mul", a, _fr_mont(_fr_rand(rng, 7)[::-1]).reshape(1, 7, 1, L), None
     if name == "to_mont_edges":  # values up to 2^256 - 1 times R^2, and lazy limbs at 2^16 + 2^8 times < N
         canon = [0, 1, N - 1, (1 << 256) - 1, (1 << 256) - 2] + [int.from_bytes(rng.bytes(32), "little")
@@ -912,12 +907,11 @@ def _glue_case(name, rng):
 GLUE_PLAIN = {"mul": limb.mont_mul, "add": limb.add, "sub": limb.sub}
 
 
-@pytest.mark.parametrize("name,threads,copies", [
-    ("mul_bcast", 32, 0), ("mul_bcast_blocks", 32, 0), ("to_mont_edges", 64, 0), ("add_vec", 32, 0),
-    ("sub_slices", 64, 0), ("sub_rows", 32, 0), ("neg", 32, 0), ("sum_slice", 32, 0), ("sum_max", 32, 0), ("dot", 128, 0),
-    ("limb_strided", 32, 1), ("five_dims", 64, 2),
+@pytest.mark.parametrize("name,copies", [
+    ("mul_bcast", 0), ("mul_bcast_blocks", 0), ("to_mont_edges", 0), ("add_vec", 0), ("sub_slices", 0),
+    ("sub_rows", 0), ("neg", 0), ("sum_slice", 0), ("sum_max", 0), ("dot", 0), ("limb_strided", 1), ("five_dims", 2),
 ])
-def test_fr_glue_kernels_on_cpu_threads(sim, name, threads, copies):
+def test_fr_glue_kernels_on_cpu_threads(sim, name, copies):
     """csrc/fr_glue.cu's entry point on the geometry its wrapper gives
     (cuda_fr.layout: the broadcast operands' strides, the dims coalesced,
     the copies counted) limb for limb against ops/limb.py's plain versions,
@@ -937,7 +931,7 @@ def test_fr_glue_kernels_on_cpu_threads(sim, name, threads, copies):
         flat.numpy().tofile(sim / f)
         files += [flat.numel(), t.storage_offset()]
     np.array(geom, np.int64).tofile(sim / "geom.bin")
-    _run(sim, "g", cuda_fr.OPS.index(op), threads, *files)
+    _run(sim, "g", cuda_fr.OPS.index(op), *files)
     got = np.fromfile(sim / "out.bin", np.int64).reshape(shape)
     if op in GLUE_PLAIN:
         want = GLUE_PLAIN[op](FR_SPEC, a, b)
@@ -948,8 +942,8 @@ def test_fr_glue_kernels_on_cpu_threads(sim, name, threads, copies):
     assert np.array_equal(got, want.numpy())
 
 
-@pytest.mark.parametrize("lanes,rows", [(16, 3), (32, 2)])
-def test_pairing_kernel_on_cpu_threads(sim, lanes, rows):
+@pytest.mark.parametrize("rows", [3, 2])
+def test_pairing_kernel_on_cpu_threads(sim, rows):
     """csrc/pairing.cu's kernel (its tables, slot layout and operand path;
     the carry chain of a combination's reduction in plain C) on seven rows
     of e(el, [s]G2) e(er, G2): true where er = -[s] el, the identity on
@@ -967,8 +961,9 @@ def test_pairing_kernel_on_cpu_threads(sim, lanes, rows):
     tab.tofile(sim / "tab.bin")
     pp.lines.astype(np.int32).tofile(sim / "lines.bin")
     np.array([w for v in pairing_program.const_ints() for w in _build.words(v, 12)], np.uint32).tofile(sim / "consts.bin")
-    _run(sim, "q", len(sides), lanes, rows, pairing_program.row_slots(scratch), tab_words, pp.lines.size)
+    _run(sim, "q", len(sides), rows, pairing_program.row_slots(scratch), tab_words, pp.lines.size)
     assert np.fromfile(sim / "out.bin", np.int32).tolist() == want
     stages = np.fromfile(sim / "ph.bin", np.int64).reshape(-1, 10)[:, 9]
+    lanes = _build.launch_constant("pairing.cu", "PAIR_LANES")
     assert stages[1] == stages[5] == stages[6] == pairing_program.program_stats()["row"][lanes]["stages"]
     assert stages[0] == 0 and 0 < stages[3] < stages[1] and 0 < stages[4] < stages[1]

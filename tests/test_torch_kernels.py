@@ -5,7 +5,8 @@ for limb against the plain version of its decomposition and in affine
 coordinates against the per-point MSM; the aggregate subgroup verdicts on
 rows whose points all decode, against the plain version of the kernels'
 decomposition and the JAX package's algorithm; the pow kernel on 0, 1 and
-N - 1; every lane-group width; the tensor-core probe kernels bit for bit), the point-sharded
+N - 1; B ragged against the rows a block each launcher derives; the
+tensor-core probe kernels bit for bit), the point-sharded
 MSM (parallel/mesh.shard_map_msm) on a virtual mesh of the card against the unsharded kernel,
 the verifier's modes and verify_rlc on the card against the CPU, the
 captured programs against the eager form (over alternating batches, two
@@ -63,11 +64,12 @@ def test_mont_mul_kernel(dev, spec):
 
 @pytest.mark.parametrize("n", [1, 127, 129, 4097])
 @pytest.mark.parametrize("spec", [FP_SPEC, FR_SPEC], ids=["fp", "fr"])
-def test_mont_mul_kernel_ragged(dev, spec, n, monkeypatch):
-    """The Montgomery-product kernel at ragged counts, at every block size
-    the sweep tries, on slabs 8 bytes past a 16-byte boundary too (views
-    from row 1), with 0, 1 and N - 1 as limbs and in the Montgomery domain
-    times every other value, limb for limb against the plain product."""
+def test_mont_mul_kernel_ragged(dev, spec, n):
+    """The Montgomery-product kernel at counts ragged against its threads a
+    block, in one and several blocks, on slabs 8 bytes past a 16-byte
+    boundary too (views from row 1), with 0, 1 and N - 1 as limbs and in
+    the Montgomery domain times every other value, limb for limb against
+    the plain product."""
     edge = torch.from_numpy(np.stack([spec.encode(v) for v in (0, 1, spec.N - 1)]
                                      + [spec.to_mont(v) for v in (1, spec.N - 1)])).to(dev)
     a, b = _canon(spec, (n + 1,), 3 + n, dev), _canon(spec, (n + 1,), 4 + n, dev)
@@ -76,10 +78,8 @@ def test_mont_mul_kernel_ragged(dev, spec, n, monkeypatch):
     if n > 2 * len(edge):
         b[1 : 1 + len(edge)] = edge.flip(0)
     kern = cuda_field.fp_mont_mul if spec is FP_SPEC else cuda_field.fr_mont_mul
-    for threads in (32, 64, 128, 256, 512):
-        monkeypatch.setattr(cuda_field, "MONT_MUL_THREADS", threads)
-        for x, y in ((a[:n], b[:n]), (a[1:], b[1:]), (a[1:], b[:n])):
-            assert torch.equal(kern(x, y), cuda_field.mont_mul_plain(x, y, spec)), (threads, x.data_ptr() % 16)
+    for x, y in ((a[:n], b[:n]), (a[1:], b[1:]), (a[1:], b[:n])):
+        assert torch.equal(kern(x, y), cuda_field.mont_mul_plain(x, y, spec)), x.data_ptr() % 16
 
 
 def _pow_case(which, shape, seed, dev):
@@ -106,30 +106,23 @@ def test_pow_kernel(dev, which, shape):
 
 
 @pytest.mark.parametrize("which", ["fr_inverse", "fp_sqrt"])
-def test_pow_kernel_lane_groups(dev, which, monkeypatch):
-    """Every lane-group width and elements-per-block setting gives the same
-    limbs (ragged last block)."""
-    x, e, kern, _spec = _pow_case(which, (37, 3), 11, dev)
-    want = kern(x, e)
-    attr, widths = ("POW_FR_LANES", (2, 4, 8)) if which == "fr_inverse" else ("POW_FP_LANES", (2, 4))
-    for lanes in widths:
-        for rows in (1, 2, 5, 256 // lanes):
-            monkeypatch.setattr(cuda_field, attr, lanes)
-            monkeypatch.setattr(cuda_field, "POW_ROWS", rows)
-            assert torch.equal(kern(x, e), want), (lanes, rows)
+def test_pow_kernel_lane_groups(dev, which):
+    """Element counts ragged against the elements a block the launcher
+    fixes, in one and several blocks: the plain version's limbs."""
+    for n in (5, 9, 111, 1031):
+        x, e, kern, spec = _pow_case(which, (n,), 11 + n, dev)
+        assert torch.equal(kern(x, e), cuda_field.pow_plain(x, spec, e)), n
 
 
-@pytest.mark.parametrize("tpb", [1, 3, 128])
-def test_block_size_keeps_results(dev, tpb, monkeypatch):
-    """Any block size gives the default's output (ragged last block) in the
-    one-thread-per-item kernels: the unfused decompress kernel."""
-    from plutus_halo2_tpu_torch.ops import _build
-
-    raw, hints, _kinds = _grid(37, 3, 10, ["go", "gox"])
+@pytest.mark.parametrize("B,K", [(1, 1), (37, 3), (13, 5)])
+def test_block_size_keeps_results(dev, B, K):
+    """The one-thread-per-item kernel, the unfused decompress kernel, at
+    point counts ragged against its threads a block, in one and several
+    blocks: the plain version's points and flags."""
+    raw, hints, _kinds = _grid(B, K, 10 + B, ["go", "gox"])
     raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
-    want = cuda_curve.decompress_hinted(raw_t, hints_t)
-    monkeypatch.setattr(_build, "BLOCK_THREADS", tpb)
     got = cuda_curve.decompress_hinted(raw_t, hints_t)
+    want = cuda_curve.decompress_hinted_plain(raw_t, hints_t)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -159,18 +152,15 @@ def test_transcript_kernel_simple_mul(dev, B):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-def test_transcript_kernel_lane_groups(dev, monkeypatch):
-    """Every lanes-a-compression and rows-a-block setting gives the plain
-    digests: ragged last blocks."""
+def test_transcript_kernel_lane_groups(dev):
+    """B ragged against the rows a block the launcher derives (1, 2, 4 and
+    8 on an H100's 132 SMs): the plain digests."""
     rng = np.random.default_rng(9)
-    buf = torch.from_numpy(rng.integers(0, 256, size=(37, 1300), dtype=np.uint8)).to(dev)
-    want = cuda_blake.transcript_hashes_plain(buf, SIMPLE_MUL_LENGTHS)
-    for lanes in (1, 4):
-        for rows in (0, 1, 3, 8):
-            monkeypatch.setattr(cuda_blake, "TRANSCRIPT_LANES", lanes)
-            monkeypatch.setattr(cuda_blake, "TRANSCRIPT_ROWS", rows)
-            got = cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (lanes, rows)
+    for B in (37, 133, 397, 1031):
+        buf = torch.from_numpy(rng.integers(0, 256, size=(B, 1300), dtype=np.uint8)).to(dev)
+        want = cuda_blake.transcript_hashes_plain(buf, SIMPLE_MUL_LENGTHS)
+        got = cuda_blake.transcript_hashes(buf, SIMPLE_MUL_LENGTHS)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), B
 
 
 def _hashlib_digests(buf: np.ndarray, lengths):
@@ -280,14 +270,12 @@ def test_msm_kernel_at_4_bit_windows(dev, K):
             assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("lanes,rows", [(4, 0), (8, 3), (16, 0), (32, 1), (32, 5)])
-def test_msm_kernel_lane_groups(dev, lanes, rows, monkeypatch):
-    """Every lane-group width and rows-per-block setting gives the same limbs."""
-    pts, sc = _msm_rows(37, 9, 5, dev)
-    want = cuda_curve.msm(pts, sc)
-    monkeypatch.setattr(cuda_curve, "MSM_LANES", lanes)
-    monkeypatch.setattr(cuda_curve, "MSM_ROWS", rows)
-    assert torch.equal(cuda_curve.msm(pts, sc), want)
+def test_msm_kernel_lane_groups(dev):
+    """B ragged against the rows a block the launcher derives (1, 2, 4 and
+    8 on an H100's 132 SMs): the plain version's limbs."""
+    for B in (37, 133, 397, 1031):
+        pts, sc = _msm_rows(B, 9, 5 + B, dev)
+        assert torch.equal(cuda_curve.msm(pts, sc), tc.msm_windowed(pts, sc, 5)), B
 
 
 def _probe_inputs(B, seed):
@@ -326,16 +314,13 @@ def test_int8_chain_kernel(dev, B):
         assert torch.equal(cuda_mma.int8_chain(m_d, v_d, steps).cpu(), cuda_mma.chain_plain(mat, vec, steps)), steps
 
 
-@pytest.mark.parametrize("B", [16, 2048])
-def test_bf16_chain_kernel(dev, B, monkeypatch):
-    """The bf16 chain at a single warp's width and at 128 warps, at every
-    warps-a-block setting, bit for bit against the exact plain chain."""
+@pytest.mark.parametrize("B", [16, 17, 2048])
+def test_bf16_chain_kernel(dev, B):
+    """The bf16 chain at a single warp's width, a ragged second warp and
+    128 warps, bit for bit against the exact plain chain."""
     mat, vec = _probe_inputs(B, B + 1)
     want = cuda_mma.chain_plain(mat, vec)
-    m_d, v_d = mat.to(dev), vec.to(dev)
-    for warps in (1, 2, 3, 8):
-        monkeypatch.setattr(cuda_mma, "CHAIN_WARPS", warps)
-        assert torch.equal(cuda_mma.bf16_chain(m_d, v_d).cpu(), want), warps
+    assert torch.equal(cuda_mma.bf16_chain(mat.to(dev), vec.to(dev)).cpu(), want)
 
 
 @pytest.mark.parametrize("B", [1, 17, 64, 128, 129, 1024])
@@ -343,19 +328,12 @@ def test_pairing_kernel(dev, B):
     """Rows of e([r]G, [s]G2) e([t]G, G2): true where t = -r s (rows 0, 2
     mod 4), false otherwise, the identity on the left (r = 0) or the right
     (t = 0) in some rows, (O, O) in row 0; B ragged against the rows per
-    block, at every lane-group width."""
+    block."""
     pp = cuda_pairing.PreparedPair(tp.prepare_g2(rc.g2_mul(rc.G2_GEN, S)), tp.prepare_g2(rc.G2_GEN))
     el, er, want = check_rows(B, B, dev)
     plain = cuda_pairing.pairing_check_plain(el, er, pp)
     assert torch.equal(plain, want)
-    default = cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK
-    for lanes, rows in (default, (32, 1), (32, 3), (16, 3)):
-        cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = lanes, rows
-        try:
-            got = cuda_pairing.pairing_check(el, er, pp)
-        finally:
-            cuda_pairing.LANES, cuda_pairing.ROWS_PER_BLOCK = default
-        assert torch.equal(got, plain), (lanes, rows)
+    assert torch.equal(cuda_pairing.pairing_check(el, er, pp), plain)
 
 
 def _artifacts():
@@ -588,18 +566,20 @@ def test_decompress_kernel(dev, B, K, rounds):
         assert torch.equal(got[2][all_valid], old[all_valid])
 
 
-@pytest.mark.parametrize("lanes,rows", [(4, 0), (8, 3), (16, 0), (32, 1), (32, 5)])
-def test_decompress_kernel_lane_groups(dev, lanes, rows, monkeypatch):
-    """Every lane-group width and rows-per-block setting gives the same
-    points, flags and verdicts."""
-    raw, hints, _kinds = _grid(37, 10, 3, ["go", "goe", "gox"])
-    raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
+def test_decompress_kernel_lane_groups(dev):
+    """The fused kernel at B ragged against the rows a block its launcher
+    derives (1, 2, 4 and up to 16 on an H100's 132 SMs): the plain version's
+    points and flags, and its verdicts on the rows whose points all
+    decode."""
     w = torch.randint(1, 1 << 16, (2, 10), generator=torch.Generator().manual_seed(2))
-    want = cuda_curve.decompress_hinted(raw_t, hints_t, w)
-    monkeypatch.setattr(cuda_curve, "DECOMPRESS_LANES", lanes)
-    monkeypatch.setattr(cuda_curve, "DECOMPRESS_ROWS", rows)
-    got = cuda_curve.decompress_hinted(raw_t, hints_t, w)
-    assert all(torch.equal(g, x) for g, x in zip(got, want))
+    for B in (37, 133, 397, 2000):
+        raw, hints, _kinds = _grid(B, 10, 3 + B, ["go", "goe", "gox"])
+        raw_t, hints_t = torch.from_numpy(raw).to(dev), torch.from_numpy(hints).to(dev)
+        got = cuda_curve.decompress_hinted(raw_t, hints_t, w)
+        want = cuda_curve.decompress_hinted_plain(raw_t, hints_t, w)
+        all_valid = got[1].all(-1)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), B
+        assert torch.equal(got[2] & all_valid, want[2] & all_valid), B
 
 
 def _subgroup_rows(B, K, seed, dev):
@@ -626,17 +606,16 @@ def test_subgroup_kernel(dev, B, K, rounds):
     assert got.cpu().tolist() == member
 
 
-@pytest.mark.parametrize("lanes,rows", [(4, 0), (8, 3), (16, 0), (32, 1), (32, 5)])
-def test_subgroup_kernel_lane_groups(dev, lanes, rows, monkeypatch):
-    """Every lane-group width and rows-per-block setting gives the same
-    verdicts."""
-    pts, member = _subgroup_rows(37, 10, 3, dev)
+def test_subgroup_kernel_lane_groups(dev):
+    """B ragged against the rows a block the launcher derives (1, 2, 4 and
+    up to 16 on an H100's 132 SMs): the plain version's verdicts and the rows'
+    construction."""
     w = torch.randint(1, 1 << 16, (2, 10), generator=torch.Generator().manual_seed(2))
-    want = cuda_curve.aggregate_subgroup_check(pts, w)
-    assert want.cpu().tolist() == member
-    monkeypatch.setattr(cuda_curve, "SUBGROUP_LANES", lanes)
-    monkeypatch.setattr(cuda_curve, "SUBGROUP_ROWS", rows)
-    assert torch.equal(cuda_curve.aggregate_subgroup_check(pts, w), want)
+    for B in (37, 133, 397, 2000):
+        pts, member = _subgroup_rows(B, 10, 3 + B, dev)
+        got = cuda_curve.aggregate_subgroup_check(pts, w)
+        assert torch.equal(got, tc.aggregate_subgroup_check_windowed(pts, w)), B
+        assert got.cpu().tolist() == member, B
 
 
 def test_kernel_waits_for_queued_torch_work(dev):

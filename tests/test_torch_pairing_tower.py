@@ -20,7 +20,7 @@ import jax  # noqa: E402
 
 from plutus_halo2_tpu.ops import pallas_pairing as kp  # noqa: E402
 from plutus_halo2_tpu.ops.pallas_core import FP24_SPEC, kfp  # noqa: E402
-from plutus_halo2_tpu_torch.ops import cuda_pairing  # noqa: E402
+from plutus_halo2_tpu_torch.ops import _build, cuda_pairing  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops import pairing as tp  # noqa: E402
 from plutus_halo2_tpu_torch.ops import pairing_program as prog  # noqa: E402
@@ -172,7 +172,8 @@ def test_programs_keep_the_pallas_stacks():
     # the ladders, the whole table and the most rows a block holds, in the
     # 227 KB of shared memory a block can have
     ladder_words = 2 * prog.LINE_PAIR_STRIDE * 12
-    assert 4 * (ladder_words + tab_words + cuda_pairing.MAX_ROWS_PER_BLOCK * prog.row_slots(scratch) * 12) <= 232448
+    most_rows = _build.launch_constant("pairing.cu", "PAIR_MAX_ROWS")
+    assert 4 * (ladder_words + tab_words + most_rows * prog.row_slots(scratch) * 12) <= 232448
 
 
 def test_kernel_tables_resolve_every_reference():
