@@ -38,7 +38,8 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      and the chain's floor), Fr pow, Fp pow, MSM (at 5-bit windows, at
      the stage probe's 4, and at the RLC aggregation's (B / 4, 8)), pairing,
      hinted decompression (fused with the subgroup test at 1 round, and
-     unfused) and the aggregate subgroup test (1 and 2 rounds) against their
+     unfused), hintless decompression (its flags also against the spec's
+     decoder) and the aggregate subgroup test (1 and 2 rounds) against their
      plain PyTorch versions at the main path's shapes (exactly equal; the MSM
      limb for limb with the plain version of its decomposition and in affine
      coordinates with the per-point MSM; the pairing on 1024 distinct checks built from the
@@ -94,9 +95,9 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      atms_with_lookups and (l) atms_228_408 (k = 22), each in the default
      mode; each path's verdicts, launches and multi-open MSM sizes are
      checked, and the transcript kernel at each set's squeeze layout and,
-     on (g), the Fp pow and the subgroup kernel at K = 11 are held against
-     their plain versions on the very arguments the path gave them; (f),
-     (g), (i), (j), (k) are timed as (a); then a
+     on (g), the hintless decompress and the subgroup kernel at K = 11 are
+     held against their plain versions on the very arguments the path gave
+     them; (f), (g), (i), (j), (k) are timed as (a); then a
      VerificationService (batch 256, RLC group 8) answers 298 GWC19
      submissions;
   5c. programs: ``verify()`` and ``verify_rlc_device()`` run on the card as
@@ -141,7 +142,7 @@ generators (keygen and prove over the Fr polynomial kernels), in phases:
      mesh at K = 16 and 36 (its entries in one process: no collective);
   7. the probe path, launch counts set to 0 before it and read after it:
      ``tools.mma_probe`` at B = 1024 and ``tools.perf_probe`` at B = 256 on
-     the stages mul sqrtp msmp msmp5 subk pairingp verifyh, each checking
+     the stages mul decompress sqrtp msmp msmp5 subk pairingp verifyh, each checking
      its own results, the verifyh stage traced into ``chiprun_out/``; every
      kernel must launch;
   8. trace: one default-mode ``verify()`` at B = 1024 under
@@ -1040,6 +1041,35 @@ def main() -> int:
           f"{int((rows_ok & got[2]).sum())} of them in G1; unfused variant {unfused_ms:.4f} ms device "
           f"(plain {_call_ms(lambda: cuda_curve.decompress_hinted_plain(raw_t, hints_t), 2):.3f} ms)")
 
+    # hintless decompression at (B, 10) on the same encodings (a wrong or
+    # oversized hint's row decodes here): points and flags against the plain
+    # version (curve.decompress without a hint) and the spec's decoder
+    spec_decodes = {}
+    for enc in {r.tobytes() for r in raw.reshape(-1, 48)}:
+        try:
+            rc.g1_decompress(enc)
+            spec_decodes[enc] = True
+        except ValueError:
+            spec_decodes[enc] = False
+    got_h = cuda_curve.decompress_hintless(raw_t)
+    want_h, plain_ms = _plain(lambda: tc.decompress(raw_t))
+    torch.cuda.synchronize()
+    if not (torch.equal(got_h[0], want_h[0]) and torch.equal(got_h[1], want_h[1])):
+        _fail(f"sqrt_decode kernel's points or valid flags differ from the plain version at {tuple(raw.shape[:2])}")
+    if got_h[1].cpu().numpy().ravel().tolist() != [spec_decodes[r.tobytes()] for r in raw.reshape(-1, 48)]:
+        _fail("sqrt_decode valid flags differ from the spec's decoder")
+    # per point that is not an infinity encoding: the ladder, and x into the
+    # domain, x^2, x^3, y^2, canonical y, x and y out
+    sqrt_products = (_pow_products(window_digits((P + 1) >> 2)) + 7) * int((raw[..., 0] & 0x40 == 0).sum())
+    record("sqrt_decode", "plutus_halo2_tpu_torch/csrc/sqrt_decode.cu",
+           "plutus_halo2_tpu/ops/pallas_field.py:32 (make_pow_kernel's Fp (p+1)/4 ladder) and the decoding "
+           "the JAX package runs around it under XLA",
+           limb_err(got_h[0], want_h[0]),
+           _times(lambda: cuda_curve.decompress_hintless(raw_t), "sqrt_decode_kernel", 10), plain_ms,
+           _bound_ms(2 * sqrt_products * _cios_products(12), raw.size + 8 * got_h[0].numel() + got_h[1].numel()))
+    print(f"[kernel] sqrt_decode rows: {int(got_h[1].all(-1).sum())} of {B} decode without hints; the pow kernel "
+          f"alone on (B, {n_pts}) above")
+
     # aggregate subgroup test at (B, 10) on decoded points: honest rows, rows
     # with identities, rows with a point outside G1; rounds 1 and 2
     pts_ok = got[0][rows_ok][:1].expand(B, -1, -1, -1).clone()
@@ -1180,8 +1210,9 @@ def main() -> int:
     # ---- 5. the paths ------------------------------------------------------
     counters = {
         "transcript": cuda_blake.transcript_hashes, "pow_fr": cuda_field.fr_pow,
-        "pow_fp": cuda_field.fp_pow, "msm": cuda_curve.msm, "pairing": cuda_pairing.pairing_check,
-        "decompress": cuda_curve.decompress_hinted, "subgroup": cuda_curve.aggregate_subgroup_check,
+        "pow_fp": cuda_field.fp_pow, "sqrt_decode": cuda_curve.decompress_hintless, "msm": cuda_curve.msm,
+        "pairing": cuda_pairing.pairing_check, "decompress": cuda_curve.decompress_hinted,
+        "subgroup": cuda_curve.aggregate_subgroup_check,
         "mont_mul": cuda_field.fp_mont_mul, "int8_dot": cuda_mma.int8_dot,
         "int8_chain": cuda_mma.int8_chain, "bf16_chain": cuda_mma.bf16_chain,
     }
@@ -1296,11 +1327,11 @@ def main() -> int:
 
     # (b) the hintless aggregate mode (__graft_entry__.entry()'s path)
     run_path("b hintless aggregate", lambda: default.verify(proof_t, pis_t, None, gen), expected,
-             base + ("pow_fp", "subgroup"))
+             base + ("sqrt_decode", "subgroup"))
     traced_timed("b", lambda: default.verify(proof_t, pis_t, None, gen))
     # (c) the hintless mode with the subgroup test off
     run_path("c hintless, subgroup off", lambda: verifier.verify(proof_t, pis_t), expected,
-             base + ("pow_fp",))
+             base + ("sqrt_decode",))
     # the swapped row fails the subgroup test in the aggregate and exact
     # modes only (it also rejects through its changed transcript)
     for mode in ("aggregate", "exact", "off"):
@@ -1383,7 +1414,7 @@ def main() -> int:
     from plutus_halo2_tpu_torch.models import verifier_torch
 
     sites = {"transcript": ("cuda_blake", "transcript_hashes", cuda_blake.transcript_hashes_plain),
-             "pow_fp": ("cuda_field", "fp_pow", lambda x, e: cuda_field.pow_plain(x, FP_SPEC, e)),
+             "sqrt_decode": ("cuda_curve", "decompress_hintless", tc.decompress),
              "subgroup": ("cuda_curve", "aggregate_subgroup_check", cuda_curve.aggregate_subgroup_check_plain)}
 
     class Proxy:
@@ -1437,9 +1468,9 @@ def main() -> int:
     check_counts("f", gv, [3, 17])
     traced_timed("f", lambda: gv.verify(g_proof, g_pis, g_hints, gen))
     # (g) GWC19, the hintless aggregate mode
-    with keeping("pow_fp", "subgroup") as kept:
+    with keeping("sqrt_decode", "subgroup") as kept:
         run_path("g simple_mul GWC19 hintless aggregate", lambda: gv.verify(g_proof, g_pis, None, gen), g_want,
-                 base + ("pow_fp", "subgroup"))
+                 base + ("sqrt_decode", "subgroup"))
     hold_plain("g", kept)
     check_counts("g", gv, [3, 17])
     traced_timed("g", lambda: gv.verify(g_proof, g_pis, None, gen))
@@ -1692,7 +1723,7 @@ def main() -> int:
     flat = pm.make_mesh(mesh_devs)
     grid = pm.make_mesh_2d(dp=len(mesh_devs) // 2, mp=2, devices=mesh_devs)
     print(f"[mesh] {flat}; {grid}")
-    hintless = base + ("pow_fp", "subgroup")
+    hintless = base + ("sqrt_decode", "subgroup")
     wall_b2 = timed(lambda: default.verify(proof_t, pis_t, None, gen))
     print(f"[mesh] path (b) in this phase: {wall_b2 * 1e3:.1f} ms per batch (median of 3)")
     lv, l_proof, l_pis, _l_hints, l_want, _l_hinted = circuit_inputs("lookup_table")
@@ -1784,7 +1815,7 @@ def main() -> int:
     from plutus_halo2_tpu_torch.tools import mma_probe, perf_probe
 
     out_dir = os.path.join(root, "chiprun_out")  # listed in .gitignore
-    probe_stages = ["mul", "sqrtp", "msmp", "msmp5", "subk", "pairingp", "verifyh"]
+    probe_stages = ["mul", "decompress", "sqrtp", "msmp", "msmp5", "subk", "pairingp", "verifyh"]
     _, launches, first_s = counted("probes", lambda: (
         mma_probe.main([str(B)]),
         perf_probe.main([str(PROBE_BATCH), *probe_stages, "--trace", os.path.join(out_dir, "trace_probe")]),
@@ -1836,7 +1867,7 @@ def main() -> int:
     bench_args = ["--batch", str(B), "--rows", "all", "--iters", "3",
                   "--out", os.path.join(out_dir, "bench_details.json")]
     rows9, launches, first_s = counted("bench", lambda: bench.main(bench_args),
-                                       base + ("decompress", "pow_fp", "subgroup"))
+                                       base + ("decompress", "sqrt_decode", "subgroup"))
     # the bench's K = 64 MSM (held there against the plain windowed MSM and
     # the spec on these tensors): its device time beside its bound
     pts64, sc64, _host64, _scal64 = bench.msm_inputs(B, dev)
@@ -1870,8 +1901,8 @@ def main() -> int:
     print(f"[health] ECC after the run: {ecc_after} (before: {ecc_before})")
     print(f"[health] Xid: {xid}")
     print(json.dumps({"kernels": [results[n] for n in (
-        "transcript", "pow_fr", "pow_fp", "msm", "pairing", "decompress", "subgroup", "mont_mul", "int8_dot",
-        "int8_chain", "bf16_chain", "fr_glue") + POLY_KERNELS]}))
+        "transcript", "pow_fr", "pow_fp", "sqrt_decode", "msm", "pairing", "decompress", "subgroup", "mont_mul",
+        "int8_dot", "int8_chain", "bf16_chain", "fr_glue") + POLY_KERNELS]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -4,8 +4,9 @@
 // What it computes: x^e for every element of an (n, L) slab of Montgomery
 // limbs, e static and given as its MSB-first 4-bit window digits. On the
 // verifier's path: the Fr Fermat inversion (e = q - 2, 64 digits, one
-// element per proof) and the Fp square-root ladder of hintless
-// decompression (e = (p + 1) / 4, 96 digits, ten elements per proof).
+// element per proof). The Fp square-root ladder of hintless decompression
+// (e = (p + 1) / 4, 95 digits) runs this kernel's ladder inside the
+// hintless decompress kernel (sqrt_decode.cu).
 //
 // Bound: integer multiply throughput. Per element, 14 table products, then
 // per later digit 4 squarings and a table product unless the digit is 0,

@@ -50,8 +50,8 @@ from ..ops import _build, cuda_blake, cuda_curve, cuda_field, cuda_fr, cuda_pair
 from ..utils import tracing
 
 # the kernel wrappers a program body can launch, whose `launches` a replay adds to
-COUNTED = (cuda_blake.transcript_hashes, cuda_field.fr_pow, cuda_field.fp_pow, cuda_curve.msm,
-           cuda_curve.decompress_hinted, cuda_curve.aggregate_subgroup_check, cuda_pairing.pairing_check,
+COUNTED = (cuda_blake.transcript_hashes, cuda_field.fr_pow, cuda_curve.msm, cuda_curve.decompress_hinted,
+           cuda_curve.decompress_hintless, cuda_curve.aggregate_subgroup_check, cuda_pairing.pairing_check,
            cuda_fr.mul, cuda_fr.add, cuda_fr.sub, cuda_fr.sum_lazy, cuda_fr.dot_lazy)
 
 

@@ -5,11 +5,11 @@ Pipeline per batch (each proof a row):
   proof bytes -> transcript buffer (gather) -> all Fiat-Shamir challenges
   (transcript kernel) -> point decompression (with y-hints the hinted
   decompression kernel, which in the default "aggregate" subgroup mode also
-  runs the per-row aggregate subgroup test; without, the Fp pow kernel as
-  the sqrt ladder, then the subgroup kernel) -> scalar work over Fr (one
-  pooled batch inversion rooted in the Fr pow kernel, Lagrange basis,
-  vanishing fold) -> the multi-open MSM (MSM kernel) -> the pairing check
-  (pairing kernel).
+  runs the per-row aggregate subgroup test; without, the hintless
+  decompression kernel with its sqrt ladder, then the subgroup kernel) ->
+  scalar work over Fr (one pooled batch inversion rooted in the Fr pow
+  kernel, Lagrange basis, vanishing fold) -> the multi-open MSM (MSM
+  kernel) -> the pairing check (pairing kernel).
 
 Both KZG multi-open flavors of the reference are ported: the Halo2-book
 accumulation (one MSM, ``_multiopen_halo2``) and GWC19 (``_multiopen_gwc``:
@@ -652,8 +652,7 @@ class TorchVerifier:
                 scalars = {n: sc_vals[:, i, :] for i, n in enumerate(lay.scalar_offsets)}
             pt_raw = proof[:, self._pt_idx]
             if hints is None:
-                sqrt_fn = lambda rhs: cuda_field.fp_pow(rhs.contiguous(), (FP_SPEC.N + 1) >> 2)  # noqa: E731
-                return scalars, *tc.decompress(pt_raw, sqrt_fn=sqrt_fn), None
+                return scalars, *cuda_curve.decompress_hintless(pt_raw), None
             if self.subgroup_check == "aggregate":
                 # the fused kernel: the subgroup test on the points just decoded
                 return scalars, *cuda_curve.decompress_hinted(pt_raw, hints, sub_weights)

@@ -28,7 +28,7 @@ from ..refimpl.field import BLS_X, P, Q
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 SOURCES = ("field_test.cu", "blake2b.cu", "pow.cu", "msm.cu", "pairing.cu", "decompress.cu",
-           "subgroup.cu", "mma_probe.cu", "mma_chain.cu", "poly.cu", "graphs.cu", "fr_glue.cu")
+           "subgroup.cu", "mma_probe.cu", "mma_chain.cu", "poly.cu", "graphs.cu", "fr_glue.cu", "sqrt_decode.cu")
 HEADERS = ("field.cuh", "lanes.cuh", "curve.cuh", "group.cuh")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -49,6 +49,7 @@ SIGNATURES = {
     "ph2_pairing_check": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ph2_decompress": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "ph2_subgroup": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "ph2_sqrt_decode": (_P, _P, _P, _I, _P, _I, _P),
     "ph2_mma_int8_dot": (_P, _P, _P, _I, _P),
     "ph2_mma_int8_chain": (_P, _P, _P, _I, _I, _P),
     "ph2_mma_bf16_chain": (_P, _P, _P, _I, _I, _P),

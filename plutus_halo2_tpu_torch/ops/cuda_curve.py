@@ -1,6 +1,6 @@
 """Curve kernels (``csrc/msm.cu``, ``csrc/decompress.cu``,
-``csrc/subgroup.cu``), their plain PyTorch versions and their launch
-counters.
+``csrc/sqrt_decode.cu``, ``csrc/subgroup.cu``), their plain PyTorch
+versions and their launch counters.
 
 ``msm`` replaces ``plutus_halo2_tpu/ops/pallas_curve.py:233``
 ``make_msm_kernel``: B independent MSMs sum_k s_k P_k over K points. Points
@@ -13,6 +13,15 @@ and ``msm_plain``, ``ops/curve.msm`` (the JAX package's ``jc.msm``, the
 same limbs), which the wrapper runs on CPU tensors so that the CPU
 verifier's limbs stay the JAX package's; it sums in another order, so
 compare the kernel with it in affine coordinates.
+
+``decompress_hintless`` (``csrc/sqrt_decode.cu``) decodes (B, K, 48)
+compressed points without hints in one launch: flags, x < p, x^3 + 4, the
+(p + 1) / 4 ladder of the pow kernel, the root check and the sign. Its
+plain version is ``ops/curve.decompress`` without a hint (the same 4-bit
+window ladder); points and valid flags are bit-identical on every point.
+It replaces the Fp use of ``make_pow_kernel``
+(``plutus_halo2_tpu/ops/pallas_field.py:32``) and the decoding the JAX
+package runs around it under XLA.
 
 ``decompress_hinted`` replaces ``make_decompress_kernel`` (``:367``), both
 variants: hinted decompression of (B, K, 48) compressed points, and with
@@ -36,13 +45,16 @@ row a group of lanes and put the fewest rows in a block that fill the SMs
 once (``csrc/group.cuh`` group_rows); each launcher fixes its kernel's
 lanes (``MSM_LANES`` in ``csrc/msm.cu``, ``DECOMPRESS_LANES`` in
 ``csrc/decompress.cu``, ``SUBGROUP_LANES`` in ``csrc/subgroup.cu``), and
-the unfused decompress kernel's threads a block (``DECOMPRESS_THREADS``)."""
+the unfused decompress kernel's threads a block (``DECOMPRESS_THREADS``).
+The hintless decompress kernel gives each point a group of lanes, as the
+pow kernel does (``SQRT_DECODE_LANES``, ``SQRT_DECODE_ROWS`` points a
+block, in ``csrc/sqrt_decode.cu``)."""
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, curve
+from . import _build, cuda_field, curve
 from .limb import FP_SPEC, FR_SPEC
 
 MAX_K = 128  # points per row the row-layout kernels take
@@ -93,6 +105,31 @@ def _weights_on(weights, K: int, device) -> torch.Tensor:
         _build.require(weights.w, "weights", torch.int32, (None, K))
         return weights.w
     return curve.check_weights(weights, K).to(torch.int32).to(device).contiguous()
+
+
+SQRT_EXP = (FP_SPEC.N + 1) >> 2  # the square root's exponent: p = 3 mod 4
+
+
+def decompress_hintless(pt_raw):
+    """pt_raw (B, K, 48) uint8 -> (points (B, K, 3, 25), valid (B, K)
+    bool): each point decoded without a hint, its root by the (p + 1) / 4
+    ladder."""
+    if pt_raw.device.type == "cpu":
+        return curve.decompress(pt_raw)
+    _build.require(pt_raw, "pt_raw", torch.uint8, (None, None, 48))
+    B, K = pt_raw.shape[:2]
+    dev = pt_raw.device
+    pts = torch.empty((B, K, 3, FP_SPEC.L), dtype=torch.int64, device=dev)
+    valid = torch.empty((B, K), dtype=torch.bool, device=dev)
+    d = cuda_field._digits(SQRT_EXP, dev)
+    lib = _build.library()
+    _build.check(lib.ph2_sqrt_decode(_build.ptr(pt_raw), _build.ptr(pts), _build.ptr(valid), B * K,
+                                     _build.ptr(d), d.numel(), _build.stream_ptr()), "ph2_sqrt_decode")
+    decompress_hintless.launches += 1
+    return pts, valid
+
+
+decompress_hintless.launches = 0
 
 
 def decompress_hinted_plain(pt_raw, y_hints, weights=None):

@@ -4,9 +4,11 @@ their plain PyTorch versions and launch counters.
 
 The pow kernel replaces ``plutus_halo2_tpu/ops/pallas_field.py:32``
 ``make_pow_kernel``. On the verifier's path it runs as the Fr inversion at
-the root of the pooled batch inversion (exponent q - 2, width 1) and as the
-Fp square-root ladder of hintless decompression (exponent (p + 1) / 4,
-one element per proof point).
+the root of the pooled batch inversion (exponent q - 2, width 1). Its Fp
+ladder (exponent (p + 1) / 4), the square root of hintless decompression,
+runs inside the hintless decompress kernel (``csrc/sqrt_decode.cu``, the
+same lanes and digits); ``fp_pow`` runs it alone, for the tests and the
+stage probe.
 
 The pow kernel gives each element a group of lanes that share each product
 of its ladder (``csrc/lanes.cuh``: CIOS with the multiplier's words

@@ -18,6 +18,8 @@ package's algorithm) is the plain version of the subgroup kernel
 (the same decomposition over the weights' 3-bit windows) is the plain
 version of that kernel's decomposition, and with ``decompress(...,
 y_hint=)`` of the hinted decompression kernel (``csrc/decompress.cu``).
+``decompress`` without a hint is the plain version of the hintless
+decompression kernel (``csrc/sqrt_decode.cu``).
 """
 
 from __future__ import annotations
@@ -416,11 +418,11 @@ def _bytes_be_to_limbs(b):
     return torch.nn.functional.pad(le[..., 0] | (le[..., 1] << 8), (0, 1))
 
 
-def decompress(comp_bytes, sqrt_fn=None, y_hint=None):
+def decompress(comp_bytes, y_hint=None):
     """Batched G1 decompression: (..., 48) uint8 -> (point (..., 3, L),
     valid (...,) bool). Invalid encodings yield valid=False (the caller folds
     this into the verdict; the on-chain builtin would abort the script).
-    sqrt_fn optionally overrides the x^((p+1)/4) ladder (the pow kernel).
+    Without a hint the root is the x^((p+1)/4) ladder.
 
     y_hint optionally supplies an UNTRUSTED candidate root ((..., L) 16-bit
     limbs, e.g. from TorchVerifier.compute_y_hints): the y^2 == x^3 + 4
@@ -450,8 +452,6 @@ def decompress(comp_bytes, sqrt_fn=None, y_hint=None):
     if y_hint is not None:
         hint = torch.as_tensor(y_hint, device=dev).to(torch.int64)[..., :24] & limb.MASK16
         y = fp.to_mont(torch.nn.functional.pad(hint, (0, 1)))
-    elif sqrt_fn is not None:
-        y = sqrt_fn(rhs)
     else:
         y = fp.pow(rhs, (FP_SPEC.N + 1) >> 2)
     root_ok = fp.eq(fp.mul(y, y), rhs)

@@ -9,8 +9,8 @@ Stages (default: mul chain pairing msm blake decompress sqrtp verify):
               the field test kernel (``cuda_field.fp_mont_mul``);
   chain       1000 dependent products, plain and through the kernel;
   blake       plain ``blake2b_256`` on (BATCH, 1152) bytes;
-  decompress  hintless ``ops/curve.decompress`` of 16 points per row, the
-              Fp pow kernel as its square root;
+  decompress  hintless decompression of 16 points per row, the hintless
+              decompress kernel (``cuda_curve.decompress_hintless``);
   sqrtp       the Fp pow kernel, exponent (p + 1) / 4, width 16;
   msm         the plain MSM; msmp, msmp5 the MSM kernel at 4- and 5-bit
               windows (K = $PROBE_MSM_K, default 24);
@@ -161,8 +161,7 @@ class _Probe:
         p7 = rc.g1_mul(rc.G1_GEN, 7)
         enc = np.frombuffer(rc.g1_compress(p7), np.uint8)
         raw = torch.from_numpy(np.broadcast_to(enc, (self.B, 16, 48)).copy()).to(self.dev)
-        sqrt = lambda r: cuda_field.fp_pow(r, (P + 1) >> 2)  # noqa: E731
-        pts, valid = self.timeit("decompress 16 pts (pow kernel sqrt)", lambda: tc.decompress(raw, sqrt_fn=sqrt))
+        pts, valid = self.timeit("decompress 16 pts (hintless kernel)", lambda: cuda_curve.decompress_hintless(raw))
         _check(valid.all(), "decompress rejected a valid point")
         _check(torch.equal(pts, pts[:1, :1].expand_as(pts)) and tc.host_point_from_mont(pts[0, 0].cpu().numpy())
                == p7, "decompress wrong")

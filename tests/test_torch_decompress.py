@@ -5,7 +5,11 @@ with jc.decompress on the case grid of test_pallas_decompress.py:18-48
 x >= p, a non-square x, a missing compressed flag, a wrong hint); the
 oversized-hint reading (mod 2^384) against make_decompress_kernel in
 interpret mode; the fused variant's per-row subgroup verdicts; and
-TorchVerifier.compute_y_hints against JaxVerifier.compute_y_hints."""
+TorchVerifier.compute_y_hints against JaxVerifier.compute_y_hints. On the
+card (``gpu``-marked, ``python -m pytest tests/test_torch_decompress.py -m
+gpu --noconftest``; JAX is imported only inside the CPU tests that need it)
+verify() without y-hints, the hintless decompress kernel, gives the hinted
+verdicts."""
 
 import os
 
@@ -17,23 +21,15 @@ torch = pytest.importorskip("torch")
 # contend with the other test workers
 torch.set_num_threads(1)
 
-import jax  # noqa: E402
-
-from plutus_halo2_tpu.models.circuits import SimpleMulCircuit as JSimpleMul  # noqa: E402
-from plutus_halo2_tpu.models.verifier_jax import JaxVerifier  # noqa: E402
-from plutus_halo2_tpu.ops import curve as jc  # noqa: E402
-from plutus_halo2_tpu.ops.pallas_curve import make_decompress_kernel  # noqa: E402
-from plutus_halo2_tpu.refimpl import curve as rc  # noqa: E402
-from plutus_halo2_tpu.refimpl.field import P  # noqa: E402
-from plutus_halo2_tpu.refimpl.keygen import plan_from_vk as j_plan_from_vk  # noqa: E402
-from plutus_halo2_tpu.utils.serialization import vk_from_json as j_vk_from_json  # noqa: E402
 from plutus_halo2_tpu_torch.models.circuits import SimpleMulCircuit  # noqa: E402
 from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier  # noqa: E402
-from plutus_halo2_tpu_torch.ops import cuda_curve  # noqa: E402
+from plutus_halo2_tpu_torch.ops import cuda_curve, cuda_field  # noqa: E402
 from plutus_halo2_tpu_torch.ops import curve as tc  # noqa: E402
 from plutus_halo2_tpu_torch.ops.limb import FP_SPEC  # noqa: E402
+from plutus_halo2_tpu_torch.refimpl import curve as rc  # noqa: E402
+from plutus_halo2_tpu_torch.refimpl.field import P  # noqa: E402
 from plutus_halo2_tpu_torch.refimpl.keygen import plan_from_vk  # noqa: E402
-from plutus_halo2_tpu_torch.utils.serialization import vk_from_json  # noqa: E402
+from plutus_halo2_tpu_torch.utils.serialization import parse_public_inputs, vk_from_json  # noqa: E402
 
 ART = os.path.join(os.path.dirname(__file__), "..", "examples", "artifacts")
 
@@ -80,6 +76,10 @@ def grid():
 
 
 def test_hinted_decompress_matches_jax(grid):
+    import jax
+
+    from plutus_halo2_tpu.ops import curve as jc
+
     raw, hints = grid
     pts, valid = tc.decompress(torch.from_numpy(raw), y_hint=torch.from_numpy(hints))
     jpts, jvalid = jax.jit(lambda r, h: jc.decompress(r, y_hint=h))(raw, hints.astype(np.uint32))
@@ -104,6 +104,10 @@ def test_oversized_hint_read_like_the_pallas_kernel():
     """The hint is read mod 2^384 as make_decompress_kernel reads it: a
     correct root with a junk top limb decodes the true point, a wrong one
     still rejects (test_pallas_decompress.py:127)."""
+    import jax
+
+    from plutus_halo2_tpu.ops.pallas_curve import make_decompress_kernel
+
     p = rc.g1_mul(rc.G1_GEN, 23)
     enc = np.frombuffer(rc.g1_compress(p), np.uint8)
     K, B = 2, 128
@@ -137,6 +141,8 @@ def test_fused_variant_subgroup_verdicts(rounds):
     adds the per-row aggregate test of the decoded points: honest rows with
     an infinity encoding pass, a row with a non-subgroup E(Fp) point fails
     (test_pallas_decompress.py:81)."""
+    from plutus_halo2_tpu.ops import curve as jc
+
     evil = _nonsubgroup_point()
     g = [rc.g1_mul(rc.G1_GEN, 3 + i) for i in range(3)]
     rows = [[g[0], g[1], g[2], None], [g[0], evil, g[2], g[1]], [None] * 4, [g[2], g[0], g[1], g[1]]]
@@ -156,6 +162,10 @@ def test_fused_variant_subgroup_verdicts(rounds):
 def test_fused_variant_matches_jax_aggregate():
     """sub_ok against jc.aggregate_subgroup_check on the JAX package's own
     decoding of the same rows (its eager MSM scan takes about a minute)."""
+    import jax
+
+    from plutus_halo2_tpu.ops import curve as jc
+
     evil = _nonsubgroup_point()
     g = [rc.g1_mul(rc.G1_GEN, 5 + i) for i in range(3)]
     rows = [[g[0], None, g[2]], [evil, g[1], g[2]], [g[1], g[1], g[0]]]
@@ -170,6 +180,11 @@ def test_fused_variant_matches_jax_aggregate():
 
 
 def test_compute_y_hints_matches_jax():
+    from plutus_halo2_tpu.models.circuits import SimpleMulCircuit as JSimpleMul
+    from plutus_halo2_tpu.models.verifier_jax import JaxVerifier
+    from plutus_halo2_tpu.refimpl.keygen import plan_from_vk as j_plan_from_vk
+    from plutus_halo2_tpu.utils.serialization import vk_from_json as j_vk_from_json
+
     with open(os.path.join(ART, "simple_mul_vk.json")) as f:
         vk_text = f.read()
     with open(os.path.join(ART, "simple_mul_proof.hex")) as f:
@@ -183,3 +198,42 @@ def test_compute_y_hints_matches_jax():
     got = tv.compute_y_hints(batch)
     assert got.dtype == np.int64 and got.shape == (4, 10, FP_SPEC.L)
     assert np.array_equal(got, jv.compute_y_hints(batch).astype(np.int64))
+
+
+@pytest.mark.gpu
+def test_card_hintless_verdicts_equal_hinted():
+    """verify() on the card without y-hints (the hintless decompress kernel)
+    and with them (the fused hinted kernel): the same verdicts on 64 rows of
+    the valid simple_mul proof with its invalid twin every 8th row, a
+    bit-flipped row and a row whose first commitment is a point outside G1;
+    each replay of the hintless program launches the hintless kernel once
+    and the Fp pow kernel never, the hinted one neither."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+
+    def read(name):
+        with open(os.path.join(ART, f"simple_mul_{name}")) as f:
+            return f.read().strip()
+
+    plan = plan_from_vk(SimpleMulCircuit(), vk_from_json(read("vk.json")))
+    B = 64
+    batch = np.stack([np.frombuffer(bytes.fromhex(read("proof.hex")), np.uint8)] * B).copy()
+    want = np.ones(B, bool)
+    batch[3::8] = np.frombuffer(bytes.fromhex(read("proof_invalid.hex")), np.uint8)
+    want[3::8] = False
+    batch[5, 100] ^= 0x40
+    batch[6, 0:48] = np.frombuffer(rc.g1_compress(_nonsubgroup_point()), np.uint8)
+    want[[5, 6]] = False
+    v = TorchVerifier(plan)
+    pis = v.encode_public_inputs([parse_public_inputs(read("public_input.hex"))] * B)
+    hints = v.compute_y_hints(batch)
+    counters = (cuda_curve.decompress_hintless, cuda_field.fp_pow, cuda_curve.decompress_hinted)
+    for _ in range(2):  # the capture, then a replay
+        runs = {}
+        for name, h in (("hintless", None), ("hinted", hints)):
+            before = [f.launches for f in counters]
+            runs[name] = v.verify(batch, pis, h, torch.Generator().manual_seed(1)).cpu().tolist()
+            runs[name + " launches"] = [f.launches - b for f, b in zip(counters, before)]
+        assert runs["hintless"] == runs["hinted"] == want.tolist()
+        assert runs["hintless launches"] == [1, 0, 0] and runs["hinted launches"] == [0, 0, 1]
+    assert v.programs.replays == 2

@@ -1,6 +1,7 @@
 """The lane-group kernels (csrc/msm.cu, the fused variant of
 csrc/decompress.cu and csrc/subgroup.cu over csrc/group.cuh; csrc/pow.cu
-over csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16 and
+and the hintless decompress kernel, csrc/sqrt_decode.cu, over
+csrc/lanes.cuh; the transcript kernel, csrc/blake2b.cu; the bf16 and
 int8 chains, csrc/mma_chain.cu; the Montgomery-product test kernel,
 csrc/field_test.cu; the prover's Fr polynomial kernels, csrc/poly.cu; the
 verifier's Fr glue kernels, csrc/fr_glue.cu; the pairing kernel,
@@ -20,7 +21,9 @@ with ops/curve.aggregate_subgroup_check_windowed on rows whose points all
 decode and valid & sub_ok everywhere; the subgroup kernel's verdicts with
 aggregate_subgroup_check_windowed and the rows' construction; the pow
 kernel limb for limb with ops/cuda_field.pow_plain for both fields at
-ragged element counts; each kernel at the lanes its launcher fixes,
+ragged element counts; the hintless decompress kernel's points and valid
+flags bit for bit with ops/curve.decompress without a hint and its flags
+with the spec's decoder; each kernel at the lanes its launcher fixes,
 ragged point counts and 1 to 4 rounds; the transcript kernel word for
 word with cuda_blake.transcript_hashes_plain, ragged rows, one squeeze,
 more squeezes than a row has groups, the rows' bytes staged in shared
@@ -220,6 +223,7 @@ alignas(16) uint32_t smem[1 << 16];
 #include "decompress.cu"
 #include "subgroup.cu"
 #include "pow.cu"
+#include "sqrt_decode.cu"
 #include "blake2b.cu"
 #include "mma_chain.cu"
 #include "field_test.cu"
@@ -448,6 +452,17 @@ int main(int argc, char** argv) {
       else pow_kernel<FrT, POW_LANES>(x.data(), out.data(), B, dig.data(), X);
     });
     writef("out.bin", out);
+  } else if (argv[1][0] == 'h') {  // B K points decoded without hints, X: the digits
+    const int n = B * K;
+    auto raw = readf<uint8_t>("raw.bin", (size_t)n * 48);
+    auto dig = readf<int>("digits.bin", (size_t)X);
+    std::vector<int64_t> pts((size_t)n * 75, -1);
+    std::vector<uint8_t> valid(n, 7);
+    run_blocks(n, SQRT_DECODE_LANES, SQRT_DECODE_ROWS, [&] {
+      sqrt_decode_kernel<SQRT_DECODE_LANES>(raw.data(), pts.data(), valid.data(), n, dig.data(), X);
+    });
+    writef("pts.bin", pts);
+    writef("valid.bin", valid);
   } else {  // X: the rounds
     auto raw = readf<uint8_t>("raw.bin", (size_t)B * K * 48);
     auto hints = readf<int64_t>("hints.bin", (size_t)B * K * 25);
@@ -624,6 +639,59 @@ def test_pow_kernel_on_cpu_threads(sim, field, n):
     _run(sim, "p", len(x), 0 if field == "fp" else 1, len(digits))
     got = np.fromfile(sim / "out.bin", np.int64).reshape(x.shape)
     assert np.array_equal(got, cuda_field.pow_plain(torch.from_numpy(x), spec, e).numpy())
+
+
+def _hintless_pool():
+    """(encoding, decodes) per crafted point for decoding without hints:
+    honest G1 points of both signs, a point outside G1 and x = 0 (both
+    decode), the identity; a cleared compression bit, infinity with the sign
+    set, with a non-zero payload and with payload bits in byte 0, x = p,
+    x = p + 2 and the largest payload (x >= p), and an x whose x^3 + 4 is a
+    non-square, with either sign (none decodes)."""
+    P = FP_SPEC.N
+
+    def flagged(x, flags=0x80):
+        b = x.to_bytes(48, "big")
+        return bytes([b[0] | flags]) + b[1:]
+
+    x_nr = next(x for x in range(1, 1000) if pow((x**3 + 4) % P, (P - 1) // 2, P) == P - 1)
+    good = [rc.g1_mul(rc.G1_GEN, k) for k in (3, 5, 7)]
+    encs = [rc.g1_compress(p) for g in good for p in (g, rc.g1_neg(g))]
+    encs += [rc.g1_compress(_evil_point()), flagged(0), flagged(0, 0xA0), bytes([0xC0] + [0] * 47),
+             bytes([rc.g1_compress(good[0])[0] & 0x7F]) + rc.g1_compress(good[0])[1:],
+             bytes([0xE0] + [0] * 47), bytes([0xC0, 1] + [0] * 46), bytes([0xC1] + [0] * 47),
+             flagged(P), flagged(P + 2), flagged((1 << 381) - 1), flagged(x_nr), flagged(x_nr, 0xA0)]
+
+    def decodes(enc):
+        try:
+            rc.g1_decompress(enc)
+            return True
+        except ValueError:
+            return False
+
+    return [(e, decodes(e)) for e in encs]
+
+
+@pytest.mark.parametrize("B,K", [(1, 1), (3, 5), (3, 7), (5, 4)])
+def test_sqrt_decode_kernel_on_cpu_threads(sim, B, K):
+    """The hintless decompress kernel on B x K points, ragged against the
+    launcher's points a block, in one and several blocks, drawn in turn
+    from _hintless_pool (every entry at (3, 7)): points and valid flags bit
+    for bit against ops/curve.decompress without a hint, the flags also
+    against the spec's decoder."""
+    pool = _hintless_pool()
+    pick = [pool[(B + j) % len(pool)] for j in range(B * K)]
+    raw = np.stack([np.frombuffer(e, np.uint8) for e, _ok in pick]).reshape(B, K, 48)
+    raw.tofile(sim / "raw.bin")
+    digits = np.array(window_digits(cuda_curve.SQRT_EXP), np.int32)
+    digits.tofile(sim / "digits.bin")
+    _run(sim, "h", B, K, len(digits))
+    pts = np.fromfile(sim / "pts.bin", np.int64).reshape(B, K, 3, FP_SPEC.L)
+    valid = np.fromfile(sim / "valid.bin", np.uint8).reshape(B, K)
+    wp, wv = tc.decompress(torch.from_numpy(raw))
+    assert np.array_equal(pts, wp.numpy())
+    assert np.array_equal(valid, wv.numpy().astype(np.uint8))
+    assert valid.astype(bool).ravel().tolist() == [ok for _e, ok in pick]
 
 
 SIMPLE_MUL_LENGTHS = (264, 265, 266, 463, 562, 1124, 1125, 1175, 1275)  # models/layout.py

@@ -5,7 +5,7 @@ for limb against the plain version of its decomposition and in affine
 coordinates against the per-point MSM; the aggregate subgroup verdicts on
 rows whose points all decode, against the plain version of the kernels'
 decomposition and the JAX package's algorithm; the pow kernel on 0, 1 and
-N - 1; B ragged against the rows a block each launcher derives; the
+N - 1; the hintless decompress kernel's points and flags; B ragged against the rows a block each launcher derives; the
 tensor-core probe kernels bit for bit), the point-sharded
 MSM (parallel/mesh.shard_map_msm) on a virtual mesh of the card against the unsharded kernel,
 the verifier's modes and verify_rlc on the card against the CPU, the
@@ -580,6 +580,44 @@ def test_decompress_kernel_lane_groups(dev):
         all_valid = got[1].all(-1)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), B
         assert torch.equal(got[2] & all_valid, want[2] & all_valid), B
+
+
+def _hintless_grid(B, K, seed):
+    """(raw, decodes) of a (B, K) grid for decoding without hints: the
+    encodings of _encoding_pool (honest points, the identity, a point
+    outside G1, a bad infinity, x >= p, a non-square x, a cleared
+    compression bit), the honest points' negations (the other sign) and
+    infinity with the sign set, each marked by the spec's decoder."""
+    encs = list(dict.fromkeys(e for e, _h, _k in _encoding_pool()))
+    encs += [rc.g1_compress(rc.g1_neg(rc.g1_mul(rc.G1_GEN, k))) for k in (3, 5, 7, 11)]
+    encs.append(bytes([0xE0] + [0] * 47))
+
+    def decodes(enc):
+        try:
+            rc.g1_decompress(enc)
+            return True
+        except ValueError:
+            return False
+
+    pick = np.random.default_rng(seed).integers(0, len(encs), size=(B, K))
+    raw = np.stack([np.frombuffer(e, np.uint8) for e in encs])[pick]
+    return raw, np.array([decodes(e) for e in encs])[pick]
+
+
+@pytest.mark.parametrize("B,K", [(1024, 10), (1, 1), (37, 3), (133, 11)])
+def test_sqrt_decode_kernel(dev, B, K):
+    """The hintless decompress kernel at the main path's shape and at point
+    counts ragged against the points a block its launcher fixes: points and
+    valid flags bit for bit against the plain version, the flags against
+    the spec's decoder, one launch a call."""
+    raw, decodes = _hintless_grid(B, K, 7 * B + K)
+    raw_t = torch.from_numpy(raw).to(dev)
+    before = cuda_curve.decompress_hintless.launches
+    got = cuda_curve.decompress_hintless(raw_t)
+    assert cuda_curve.decompress_hintless.launches == before + 1
+    want = tc.decompress(raw_t)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[1].cpu().numpy().tolist() == decodes.tolist()
 
 
 def _subgroup_rows(B, K, seed, dev):

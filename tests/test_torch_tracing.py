@@ -23,7 +23,7 @@ torch.set_num_threads(1)
 
 from plutus_halo2_tpu_torch.models import programs  # noqa: E402
 from plutus_halo2_tpu_torch.models.verifier_torch import TorchVerifier  # noqa: E402
-from plutus_halo2_tpu_torch.ops import cuda_curve, cuda_field, cuda_pairing  # noqa: E402
+from plutus_halo2_tpu_torch.ops import cuda_curve, cuda_pairing  # noqa: E402
 from plutus_halo2_tpu_torch.utils import tracing  # noqa: E402
 from plutus_halo2_tpu_torch.utils.artifacts import load_set  # noqa: E402
 
@@ -52,7 +52,9 @@ def stand_ins(monkeypatch):
     monkeypatch.setattr(cuda_curve, "msm", lambda pts, sc: pts[:, 0].contiguous())
     monkeypatch.setattr(cuda_curve, "aggregate_subgroup_check",
                         lambda pts, w: torch.ones(pts.shape[0], dtype=torch.bool))
-    monkeypatch.setattr(cuda_field, "fp_pow", lambda x, e: x)
+    monkeypatch.setattr(cuda_curve, "decompress_hintless",
+                        lambda raw: (torch.zeros((*raw.shape[:2], 3, 25), dtype=torch.int64),
+                                     torch.ones(raw.shape[:2], dtype=torch.bool)))
 
 
 def _setup(name: str):
