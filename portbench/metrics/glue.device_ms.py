@@ -17,6 +17,9 @@ CSRC_KERNELS = ("transcript_kernel", "pow_kernel", "msm_kernel", "pairing_kernel
                 "decompress_subgroup_kernel", "subgroup_kernel", "mont_mul_kernel", "fp_step_probe",
                 "lanes_step_probe", "int8_dot_kernel", "int8_chain_kernel", "bf16_chain_kernel", "fr_powers_tab_kernel", "fr_twiddle_kernel", "fr_bitrev_kernel",
                 "fr_ntt_stage_kernel", "fr_mul_array_kernel", "fr_scale_kernel", "fr_powers_mul_kernel")
+# the kernels of csrc/*.cu that do the glue's own work (the Fr ops of ops/limb.py, the hintless decode
+# of ops/curve.decompress), so they count as glue; only the test of the two lists reads this one
+GLUE_KERNELS = ("fr_glue_mul", "fr_glue_add", "fr_glue_sub", "fr_glue_sum", "fr_glue_dot", "sqrt_decode_kernel")
 
 
 def glue(kernels):

@@ -98,6 +98,17 @@ def test_setup_bound():
     assert {m["name"]: m["bound"] for m in BENCH["end_to_end"]}["setup_s"] <= 0.25
 
 
+@pytest.mark.parametrize("metric", BENCH["per_layer"], ids=lambda m: m["name"])
+def test_per_layer_metric_names_its_cells(metric):
+    """A metric with no list would be read in every cell a later change adds."""
+    assert metric["workloads"]
+
+
+@pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])
+def test_cell_reads_the_batch_tail(cell):
+    assert "batch_p95_ms" in {m["name"] for m, _mod in spec.cell(cell["name"], False).metrics}
+
+
 def test_csrc_kernel_names_are_the_ports():
     import re as _re
 
@@ -106,4 +117,6 @@ def test_csrc_kernel_names_are_the_ports():
     for f in csrc.glob("*.cu"):
         names |= set(_re.findall(r"__global__\s+void\s+(?:__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)\s*)?(\w+)",
                                  f.read_text()))
-    assert names == set(spec.metric_module("glue.device_ms").CSRC_KERNELS)
+    glue = spec.metric_module("glue.device_ms")
+    assert not set(glue.CSRC_KERNELS) & set(glue.GLUE_KERNELS)
+    assert names == set(glue.CSRC_KERNELS) | set(glue.GLUE_KERNELS)
